@@ -4,7 +4,7 @@
 // PTBTokenizer) for its host-side scoring (SURVEY.md §2 row 11).  Our
 // pure-Python scorers replace those; this C++ core accelerates the two
 // quadratic host-side kernels that dominate validation-round wall clock
-// while the TPU sits idle:
+// while the device sits idle:
 //
 //   * lcs_len        — ROUGE-L longest-common-subsequence DP
 //   * meteor_align   — staged unigram alignment (exact -> stem ->

@@ -1,12 +1,12 @@
 """Export a trained run as an AOT serving artifact (export_aot.py).
 
     python -m stvd.cli.export --run-dir runs/msvd --out artifacts/msvd \
-        [--platforms tpu | tpu,cpu | cpu] [--batch 64] [--no-kernel] \
+        [--platforms cuda | cuda,cpu | cpu] [--batch 64] [--no-kernel] \
         [--check]
 
 ``--check`` deserializes the artifact and compares its captions on a
-random feature batch against the live Captioner on the current backend
-(requires the current backend to be one of the exported platforms).
+random feature batch against the live Captioner on the current platform
+(requires the current platform to be one of the exported platforms).
 """
 
 from __future__ import annotations
@@ -20,15 +20,17 @@ def main(argv=None) -> int:
     ap.add_argument("--run-dir", required=True,
                     help="training run dir (config.json + ckpt + vocab)")
     ap.add_argument("--out", required=True, help="artifact output dir")
-    ap.add_argument("--platforms", default="tpu",
-                    help="comma list: tpu | cpu | tpu,cpu")
+    ap.add_argument("--platforms", default="cuda",
+                    help="comma list of jax.export platforms: cuda | cpu "
+                         "| cuda,cpu")
     ap.add_argument("--batch", default="",
                     help="static decode batch size(s); a comma list "
                          "(e.g. '1,64,256') exports one graph per size "
                          "for bucketed serving (default: config "
                          "decode_batch)")
     ap.add_argument("--no-kernel", action="store_true",
-                    help="force the XLA step (no Pallas) even for tpu-only")
+                    help="force the XLA step (no Triton logit tail) even "
+                         "for a cuda-only export")
     ap.add_argument("--quant", default=None, choices=["none", "int8"],
                     help="override model.decode_quant in the exported "
                          "graph (int8 = W8A8 gates matmul; weights stay "
@@ -39,13 +41,14 @@ def main(argv=None) -> int:
                          "batch size (requires beam_size > 1)")
     ap.add_argument("--data-parallel", type=int, default=0,
                     help="export sharded over a 1-D data mesh of N "
-                         "devices (multi-chip serving; batch sizes "
-                         "must divide by N; loader needs >= N devices)")
+                         "devices (multi-device serving; batch sizes "
+                         "must divide by N; loader needs >= N devices; "
+                         "implies the XLA step)")
     ap.add_argument("--model-parallel", type=int, default=0,
                     help="export tensor-parallel over a 2-D data x model "
                          "mesh (params sharded per TP_RULES; combines "
                          "with --data-parallel; loader needs >= N*M "
-                         "devices; implies the XLA step, no Pallas)")
+                         "devices; implies the XLA step)")
     ap.add_argument("--best", action="store_true", default=True)
     ap.add_argument("--check", action="store_true",
                     help="roundtrip-verify vs the live Captioner")
@@ -77,11 +80,11 @@ def main(argv=None) -> int:
           f"kernel={manifest['use_kernel']})")
 
     if args.check:
-        import jax
         import numpy as np
-        backend = jax.default_backend()
-        if backend not in platforms:
-            print(f"check skipped: current backend {backend!r} not in "
+        from ..export_aot import current_platform
+        platform = current_platform()
+        if platform not in platforms:
+            print(f"check skipped: current platform {platform!r} not in "
                   f"exported platforms {platforms}")
             return 0
         m = cap.cfg.model

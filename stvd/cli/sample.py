@@ -33,8 +33,8 @@ def main(argv=None) -> int:
     ap.add_argument("--best", action="store_true",
                     help="load ckpt_best instead of the latest ckpt")
     ap.add_argument("--use-kernel", action="store_true", default=None,
-                    help="force the Pallas fused kernels (default: auto "
-                         "— kernels on TPU, XLA path elsewhere)")
+                    help="force the Triton logit-tail kernel (default: "
+                         "auto — the kernel on the GPU, XLA elsewhere)")
     ap.add_argument("--no-kernel", dest="use_kernel",
                     action="store_false", help="force the XLA path")
     ap.add_argument("--dump-attention", type=int, default=0, metavar="N",
@@ -83,7 +83,7 @@ def main(argv=None) -> int:
                                            decode_quant=args.quant)))
     # artifacts from a dtype-overridden decode carry the override in
     # their filename so they never clobber the config's own committed
-    # artifacts (round-5 int8-parity measurements rely on this)
+    # artifacts
     qtag = f".{args.quant}" if args.quant else ""
 
     if args.synonyms:

@@ -60,8 +60,8 @@ def main(argv=None) -> int:
                     help="override: section.key=value")
     ap.add_argument("--max-updates", type=int, default=None)
     ap.add_argument("--use-kernel", action="store_true", default=None,
-                    help="force the Pallas fused kernels (default: auto "
-                         "— kernels on TPU, XLA path elsewhere)")
+                    help="force the Triton logit-tail kernel (default: "
+                         "auto — the kernel on the GPU, XLA elsewhere)")
     ap.add_argument("--no-kernel", dest="use_kernel",
                     action="store_false", help="force the XLA path")
     # Three-state parallelism flags: absent -> honor the config (so the

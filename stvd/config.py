@@ -46,13 +46,13 @@ class ModelConfig:
     alpha_c: float = 0.0            # attention-entropy regularizer weight
     # --- numerics ---
     param_dtype: str = "float32"    # parameter storage dtype
-    compute_dtype: str = "bfloat16"  # activation dtype inside matmuls (MXU)
+    compute_dtype: str = "bfloat16"  # activation dtype inside matmuls
     scan_unroll: int = 1            # train-scan unroll factor: batches the
-    # backward wgrad-accumulator round-trips (measured -15% step time at
-    # unroll=5 on v5e, reference scale); costs compile time, so default 1
+    # backward wgrad-accumulator round-trips; costs compile time, so
+    # default 1
     decode_quant: str = "none"      # 'none' | 'int8': W8A8 dynamic
-    # quantization of the decode gates matmul (the compute-bound 50-65%
-    # of the beam-decode step) on the v5e int8 MXU — opt-in
+    # quantization of the decode gates matmul (the compute-bound bulk of
+    # the beam-decode step) on the int8 tensor cores — opt-in
     # quality/perf tradeoff; weights quantized once per decode program,
     # activations per step per row.  Training is never quantized.
     fused_seq_grad: bool = True     # hand-derived sequence VJP for the
@@ -65,95 +65,31 @@ class ModelConfig:
     wgrad_dtype: str = "float32"    # weight-gradient scan-accumulator
     # dtype: 'float32' (exact) or 'bfloat16' (halves the 220 MB/step
     # dL/d[gates] accumulator traffic — see step._dot_bf16_wgrad).
-    # Measured NEGATIVE on the temporal path (round 2: 20.7 vs 24.8
-    # steps/s) — kept for experimentation only.
     spatial_wgrad_dtype: str = "bfloat16"  # dtype of the spatial fused
     # VJP's pregion-cotangent accumulator (the (B,K,R,s) = 360 MB f32
     # carry read+written every backward step — the single largest cost
-    # of config-2 training).  bfloat16 measured -23% grad-step time at
-    # reference scale (130.6 -> 101.1 ms, round 3) with ~1e-2 relative
-    # wgrad error on Ws_att/bs_att only, which adadelta's
+    # of config-2 training).  bfloat16 halves that traffic at ~1e-2
+    # relative wgrad error on Ws_att/bs_att only, which adadelta's
     # per-coordinate normalization absorbs.  float32 = exact (used
     # automatically whenever compute_dtype is float32).
-    spatial_bwd_kernel: str = "auto"  # fused Pallas backward-spatial
-    # step inside the spatial sequence VJP (kernel.spatial_bwd_pallas):
-    # e_s recompute + region-softmax backward + in-place Dpe accumulate
-    # in one VMEM pass, carrying spat across the reverse scan so the
-    # 176 MB regions tensor is read once per step instead of twice.
-    # 'auto' = on under TPU, off elsewhere; 'on' forces it (interpret
-    # mode off-TPU — tests use this); 'off' keeps the XLA path.
-    train_fwd_kernel: str = "off"   # Pallas temporal-attention core
-    # (kernel.attention_core_pallas) inside the fused-VJP FORWARD train
-    # scan: replaces ~5 XLA fusions (tanh-score, softmax, ctx reduce,
-    # selector) with one kernel per step.  The forward sits ~1.8x over
-    # its weight-streaming floor from per-fusion dependency latency
-    # (BASELINE.md "Temporal (preset-3) train decomposition"), so fewer
-    # fusions is the remaining lever.  'auto' = on under TPU, off
-    # elsewhere; 'on' forces it (interpret mode off-TPU — tests);
-    # 'off' keeps the pure-jnp body.  Backward math is unchanged.
-    # DEFAULT 'off' — MEASURED NEGATIVE at reference scale (battery
-    # 11/12, round 4): preset-3 35.71 -> 35.39 steps/s, preset-2
-    # 9.91 -> 9.70.  Matches the decode-side analogue (battery 8).
-    # Kept opt-in for A/B probes; see BASELINE.md round-4 section.
-    train_tail_kernel: str = "off"  # fused Pallas TRAIN-scan tail
-    # (kernel.train_tail_pallas): the forward body's Wc matmul + adds +
-    # LSTM pointwise as ONE launch per step, residuals identical so the
-    # hand-derived backward is untouched.  The VERDICT-r3 whole-step
-    # experiment against the forward's 1.8x-over-streaming dependency-
-    # latency gap.  'auto' = on under TPU; 'on' forces (interpret
-    # off-TPU — tests); 'off' keeps the inline jnp tail.
-    # DEFAULT 'off' — MEASURED NEGATIVE at reference scale (battery
-    # r4c): preset-3 35.20 -> 23.01 steps/s (-35%), preset-2
-    # 9.99 -> 8.55 (-14%).  Same verdict class as train_fwd_kernel:
-    # Mosaic's lowering of the fused body loses more than the saved
-    # launches gain; the forward gap is the dependency CHAIN, not
-    # launch count.  Kept opt-in, parity-pinned.
-    gates_kernel: str = "off"       # fused Pallas gates+LSTM decode
-    # kernel (kernel.gates_lstm_pallas): the combined [emb|h|ctx] @
-    # [W;U;Wc] matmul PLUS dequant/bias/sigmoid/tanh/c-h update as one
-    # kernel — the (rows, 4*dim) preactivation never touches HBM, and
-    # the weight stack is streamed from HBM exactly once per step
-    # (gate-interleaved layout; int8 W8A8 when decode_quant='int8').
-    # Targets the round-3 quantified headroom: XLA's int8 gates GEMM at
-    # 273 of 394 TOPS + the un-fused pointwise glue (VERDICT r3 Next
-    # #2/#3).  'auto' = on under TPU; 'on' forces (interpret off-TPU —
-    # tests); 'off' keeps the XLA path.  Decode only (no backward).
-    # DEFAULT 'off' — MEASURED STRONGLY NEGATIVE at reference scale
-    # (battery r4c): beam-5 b=384 bf16 4203 -> 1036 captions/s (-75%),
-    # int8 5333 -> 1095 (-79%), despite bit-exact parity on chip.
-    # Mosaic's small-tile dot pipeline cannot touch XLA's monolithic
-    # GEMM at this shape; the 273-of-394-TOPS gap is XLA-internal
-    # headroom, not harvestable via Pallas here.  Kept opt-in.
     beam_gather: str = "flat"       # beam-search parent-state reorder
     # lowering (decode/beam.py): 'flat' = row gather from the
     # (B*k, dim) 2-D view with flattened b*k+parent indices
     # (production default); 'take' = take_along_axis on the (B, k, dim)
     # 3-D view; 'onehot' = einsum against a one-hot(parent) permutation
-    # matrix (MXU matmul instead of a gather; exact — each output row
+    # matrix (a matmul instead of a gather; exact — each output row
     # is 1.0*x + 0.0*rest in f32).  All three are token/score-exact
-    # (pinned in tests/test_decode.py).  Measured verdict (battery r4g,
-    # v5e-1): XLA lowers the 3-D batched gather ~1.7x off the isolated
-    # flat-row gather (0.450 vs 0.262 ms/step at headline shape); on
-    # the full headline the flip is +9.2% beam-5 (4,234.7 -> 4,625.0
-    # captions/s, serial roofline 1.23 -> 1.13) and +9.4% int8
-    # (5,384.9 -> 5,890.2, serial 1.33 -> 1.21).  Probe:
-    # tools/probe_beam_bookkeeping.py.
+    # (pinned in tests/test_decode.py).
     beam_buf: str = "reorder"       # beam token bookkeeping scheme
     # (decode/beam.py): 'reorder' carries the (B, k, maxlen) prefix
     # buffer and gathers it by parent each step; 'backptr' writes only
     # (word, parent) at position t and reconstructs prefixes once after
-    # the loop by backtracking (probe bound v6: dropping the per-step
-    # buffer reorder is worth ~0.048 ms/step at headline shape).
-    # Token/score-exact either way (pinned).  Measured verdict (battery
-    # r4i, v5e-1): a WASH at headline scale — 4,564.4 captions/s vs
-    # the reorder scheme's 4,595-4,625 same-day band; the isolated
-    # probe win is repaid by the post-loop backtrack scan + the second
-    # i32 carry buffer.  Default stays 'reorder'.
+    # the loop by backtracking.  Token/score-exact either way (pinned).
     remat: bool = False             # jax.checkpoint the train-scan body:
     # recompute per-step activations in the backward instead of saving
-    # them (required for config 2 at full scale+batch 64: the spatial
-    # tanh intermediate alone is (B,K,R,s) = 40 GB across 30 saved
-    # steps vs 15.75 GB v5e HBM — measured OOM without this)
+    # them.  A memory lever for the autodiff train path (fused_seq_grad
+    # off, or scheduled sampling), whose saved spatial tanh alone is
+    # (B,K,R,s) x 30 steps = 40 GB at config-2 scale, batch 64.
 
     @property
     def attn_dim(self) -> int:
@@ -190,11 +126,10 @@ class TrainConfig:
     # the frozen config stays hashable AND JSON-round-trippable.
     opt_slot_dtype: str = "float32"  # adadelta accumulator (acc /
     # acc_delta) storage dtype: float32 | bfloat16.  The optimizer
-    # island is pure HBM streaming at ~36% of the temporal train step
-    # (probe_temporal_train: 10.3 ms of 28.9, vs an 8.4 ms measured
-    # triad ceiling for its 3.0 GB of traffic) — bf16 slots cut the
-    # traffic to ~2.0 GB.  Update math stays f32 (slots are cast in,
-    # rounded out); f32 = exact reference parity (default).
+    # update is pure memory streaming (~3.0 GB per step at reference
+    # scale); bf16 slots cut that to ~2.0 GB.  Update math stays f32
+    # (slots are cast in, rounded out); f32 = exact reference parity
+    # (default).
     meteor_profile: str = "meteor2005"  # METEOR parameter profile used in
     # validation scoring: meteor2005 | meteor15-en (metrics/meteor.py)
     grad_accum: int = 1             # microbatches per optimizer step:
@@ -227,7 +162,7 @@ class TrainConfig:
     # bit-identical updates; see train/loop.py:_make_shard_map_train_step)
     per_device_batch: int = 0       # when >0, global batch_size is scaled
     # to per_device_batch * DATA-axis size at fit() time (DP recipes stay
-    # valid across slice sizes: v5e-1 ... v5e-8)
+    # valid across device counts)
     model_parallel: int = 1         # >1: tensor parallelism — a 2-D
     # (data x model) mesh; gates/input GEMM weights row-sharded, vocab
     # logits column-sharded per train/parallel.py:TP_RULES. Requires
@@ -264,6 +199,12 @@ class DataConfig:
     synthetic_captions_per_video: int = 2
 
 
+# kernel switches that older run directories' config.json still carry;
+# the kernels are gone, so loading drops them
+_REMOVED_MODEL_KEYS = frozenset({"spatial_bwd_kernel", "train_fwd_kernel",
+                                 "train_tail_kernel", "gates_kernel"})
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -280,8 +221,10 @@ class Config:
     @staticmethod
     def from_json(s: str) -> "Config":
         d = json.loads(s)
+        model = {k: v for k, v in d.get("model", {}).items()
+                 if k not in _REMOVED_MODEL_KEYS}
         return Config(
-            model=ModelConfig(**d.get("model", {})),
+            model=ModelConfig(**model),
             train=TrainConfig(**d.get("train", {})),
             decode=DecodeConfig(**d.get("decode", {})),
             data=DataConfig(**d.get("data", {})),
@@ -320,21 +263,10 @@ def validate(cfg: Config) -> Config:
     if m.spatial_wgrad_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"unknown spatial_wgrad_dtype {m.spatial_wgrad_dtype!r}")
-    if m.spatial_bwd_kernel not in ("auto", "on", "off"):
-        raise ValueError(
-            f"unknown spatial_bwd_kernel {m.spatial_bwd_kernel!r}")
-    if m.train_fwd_kernel not in ("auto", "on", "off"):
-        raise ValueError(
-            f"unknown train_fwd_kernel {m.train_fwd_kernel!r}")
     if m.beam_gather not in ("take", "flat", "onehot"):
         raise ValueError(f"unknown beam_gather {m.beam_gather!r}")
     if m.beam_buf not in ("reorder", "backptr"):
         raise ValueError(f"unknown beam_buf {m.beam_buf!r}")
-    if m.gates_kernel not in ("auto", "on", "off"):
-        raise ValueError(f"unknown gates_kernel {m.gates_kernel!r}")
-    if m.train_tail_kernel not in ("auto", "on", "off"):
-        raise ValueError(
-            f"unknown train_tail_kernel {m.train_tail_kernel!r}")
     if not 0.0 <= cfg.train.ss_prob <= 1.0:
         raise ValueError("ss_prob must be in [0, 1]")
     if cfg.train.grad_accum < 1:
@@ -377,28 +309,27 @@ def parse_buckets(spec: str) -> tuple:
 
 # Named presets mirroring the five BASELINE.json target configs.
 #
-# Presets carry REFERENCE-SCALE dims (the BASELINE.md benchmark shapes):
-# the reference's dim≈3518 is rounded up to 3584 (28×128, MXU-tile
+# Presets carry REFERENCE-SCALE dims (the BASELINE.json benchmark
+# shapes): the reference's dim≈3518 is rounded up to 3584 (28×128, tile
 # aligned), dim_word 468→512, MSVD vocab ~13k→13056 (102×128), K=28
 # frames, maxlen 30, beam 5 — so `preset(N)` IS the BASELINE config,
 # not a toy.  Tests use explicitly small ModelConfigs instead.
 _REF_MODEL = dict(n_words=13056, dim_word=512, dim=3584, ctx_dim=1024,
                   n_frames=28, compute_dtype="bfloat16", scan_unroll=1)
 # scan_unroll=1: with the fused sequence VJP (model/seqgrad.py) there is
-# no per-step wgrad accumulator left to batch — unroll>1 only slows the
-# step (measured 35.8 steps/s at u1 vs 34.1 at u5, v5e reference scale)
+# no per-step wgrad accumulator left to batch
 
 
 def preset(name: str) -> Config:
     """Return a named config preset.
 
-    Presets 1-5 correspond to BASELINE.json targets (see BASELINE.md):
+    Presets 1-5 correspond to BASELINE.json targets:
       msvd-temporal   (1) temporal attention, MSVD GoogLeNet features, greedy
       msvd-spatial    (2) full spatial-temporal attention
       msvd-beam       (3) beam=5 + length norm, batched on-device
       msrvtt-fused    (4) MSR-VTT, ResNet appearance + C3D motion streams
-      msvd-dp         (5) data-parallel training over ICI (explicit
-                          shard_map psum path, per-device batch scaling)
+      msvd-dp         (5) data-parallel training (explicit shard_map
+                          psum path, per-device batch scaling)
     """
     base = Config()
     model = dataclasses.replace(base.model, **_REF_MODEL)

@@ -1,6 +1,6 @@
 """Feature banks: packed, HBM-resident video feature tensors.
 
-TPU-native replacement for the reference's per-video pickled feature dicts
+JAX replacement for the reference's per-video pickled feature dicts
 (reference: ``data_engine.py:§Movie2Caption`` holds a python dict
 vid -> ``(F, 1024)`` numpy array and subsamples/pads to K frames *per batch on
 the host*).  Here the whole bank is packed **once** into dense arrays
@@ -79,7 +79,7 @@ class FeatureBank:
 
         Cached per (dtype, sharding): the train loop evaluates NLL and
         decodes the valid/test splits every ``valid_freq`` round, and each
-        of those used to re-upload the whole bank through the host relay
+        of those would otherwise re-upload the whole bank from the host
         (at real MSVD scale the region bank alone is ~1.9 GB bf16 for the
         test split — per round, twice per split).  The bank is treated as
         immutable after the first upload; mutate the numpy arrays only
@@ -108,13 +108,13 @@ class FeatureBank:
 
     def to_device_sharded(self, mesh, dtype=None):
         """device_put the bank with its VIDEO axis sharded over the
-        mesh's 'data' axis — each chip holds ``N/n_data`` videos.
+        mesh's 'data' axis — each device holds ``N/n_data`` videos.
 
         This is the SURVEY.md §5 "if feature banks exceed HBM, shard
         the bank across chips" path made first-class: at MSR-VTT scale
         a spatial region bank is ~5.6 MB/video x 10k videos = ~56 GB,
-        far past one v5e chip's 16 GB HBM, but 8 chips hold it at
-        ~7 GB/chip.  Row lookups then run as an on-device sharded
+        most of one 80 GB device, but 4 devices hold it at
+        ~14 GB each.  Row lookups then run as an on-device sharded
         gather (see ``api.BankResident``) — requests still carry only
         int32 ids.
 

@@ -1,6 +1,6 @@
 """Dataset assembly and fixed-shape batching.
 
-TPU-native replacement for the reference's ``Movie2Caption`` +
+JAX replacement for the reference's ``Movie2Caption`` +
 ``HomogeneousData`` + ``prepare_data`` (reference ``data_engine.py``):
 
 - the reference buckets captions by length to avoid padding (dynamic batch
@@ -110,7 +110,7 @@ class BatchIterator:
 class BucketedBatchIterator:
     """Length-bucketed minibatches — the compute equivalent of the
     reference's ``HomogeneousData`` (``data_engine.py:§HomogeneousData``,
-    SURVEY.md §2 row 5), TPU-style.
+    SURVEY.md §2 row 5), XLA-style.
 
     The reference groups captions by exact length for pad-free dynamic
     batches; dynamic shapes recompile XLA per length.  Here captions are

@@ -1,11 +1,11 @@
 """Vocabulary and caption encoding.
 
-TPU-native replacement for the reference's worddict handling
+JAX replacement for the reference's worddict handling
 (reference: ``data_engine.py:§Movie2Caption`` loads ``worddict.pkl`` mapping
 word -> id with the convention id 0 == EOS ('<eos>'), id 1 == UNK; captions
 are encoded on the fly and capped at ``n_words``).  We keep the exact id
 convention so legacy worddict pickles load unchanged, but encode to fixed
-``(maxlen,)`` int32 arrays with masks — TPU wants static shapes, not the
+``(maxlen,)`` int32 arrays with masks — XLA wants static shapes, not the
 reference's ragged python lists.
 """
 

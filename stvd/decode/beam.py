@@ -45,7 +45,7 @@ def _topk_rows(x: jax.Array, ki: int, chunks: int = 1
     With ``chunks > 1`` the vocab axis splits into chunks, top-k runs on
     the (rows*chunks, V/chunks) 2D view, and a second top-k merges the
     candidates — exact (each row's global top-k is a subset of the union
-    of its per-chunk top-k).  A tuning knob for TPU top_k lowering cost
+    of its per-chunk top-k).  A tuning knob for top_k lowering cost
     at large serving widths; chunks=1 is a plain 2D top_k.
     """
     rows, v = x.shape
@@ -95,9 +95,10 @@ def beam_decode(
     V = cfg.n_words
     ki = min(k, V)
 
-    # fused Pallas logit tail (matmul+logsumexp+top-k, see
-    # kernel.make_logit_tail) when the step function provides one; built
-    # OUTSIDE the while_loop so its weight prep is loop-invariant
+    # fused logit tail (matmul+logsumexp+top-k, see
+    # kernel.make_logit_tail) when the step function provides one and
+    # takes the shape; built OUTSIDE the while_loop so its weight prep
+    # is loop-invariant
     mk_tail = getattr(step_fn, "make_logit_tail", None)
     tail = mk_tail(params["ff_logit_W"], params["ff_logit_b"], ki) \
         if mk_tail is not None else None
@@ -144,11 +145,9 @@ def beam_decode(
                                         emb_t, train=False)
             logp = jax.nn.log_softmax(logits.astype(jnp.float32), axis=-1)
             # two-stage top-k: per-beam top-k over V, then merge over
-            # k*ki — avoids a single top-k across k*V lanes
-            # (TPU-friendly; exact, since the global top-k of the union
-            # is within each beam's top-k).  The per-beam top_k runs on
-            # a 2D view: XLA's 3D top_k lowering is ~12x slower on TPU
-            # (measured 5.7 vs 0.46 ms/step).
+            # k*ki — avoids a single top-k across k*V lanes (exact,
+            # since the global top-k of the union is within each beam's
+            # top-k).  The per-beam top_k runs on a 2D view.
             pb_vals, pb_idx = _topk_rows(logp.reshape(B * k, V), ki,
                                          topk_chunks)
             pb_vals = pb_vals.reshape(B, k, ki)
@@ -174,7 +173,7 @@ def beam_decode(
         new_lengths = g(lengths) + jnp.logical_not(par_finished)
 
         # reorder recurrent state by parent beam — three exact lowerings
-        # (cfg.beam_gather; A/B'd on chip, see BASELINE.md battery r4g)
+        # (cfg.beam_gather)
         mode = getattr(cfg, "beam_gather", "take")
         if mode == "flat":
             rows = (jnp.arange(B, dtype=jnp.int32)[:, None] * k
@@ -199,7 +198,7 @@ def beam_decode(
 
             new_h, new_c = gs(out.h), gs(out.c)
         emit = jnp.where(par_finished, EOS_ID, word)
-        # token bookkeeping — two schemes (cfg.beam_buf, battery r4h):
+        # token bookkeeping — two schemes (cfg.beam_buf):
         #   'reorder': carry the full (B, k, maxlen) prefix buffer and
         #     gather it by parent every step (the reference's hypothesis
         #     -list semantics, vectorized).

@@ -46,8 +46,9 @@ def greedy_decode(
     step_fn = step_fn or step_mod.step
     params = step_mod.cast_params(params, cfg)  # one weight cast, not T
     B = batch["frames"].shape[0]
-    # fused Pallas logit tail (top-1 + logsumexp, no (B, V) logits in
-    # HBM) when the step function provides one; built outside the loop
+    # fused logit tail (top-1 + logsumexp, no (B, V) logits in device
+    # memory) when the step function provides one and takes k = 1;
+    # built outside the loop
     mk_tail = getattr(step_fn, "make_logit_tail", None)
     tail = mk_tail(params["ff_logit_W"], params["ff_logit_b"], 1) \
         if mk_tail is not None else None

@@ -3,8 +3,8 @@
 The reference decodes on a single GPU (``model_attention.py:§gen_sample``
 — SURVEY.md §3.3); TP decode has no reference equivalent.  It exists for
 the same reason as ``train.parallel.TP_RULES``: when the decoder dims
-outgrow one chip, the scale-out axis must cover inference too, not just
-training (round-3 verdict flagged TP as training-only).
+outgrow one device, the scale-out axis must cover inference too, not
+just training.
 
 Design — identical to the training TP story (the scaling-book recipe:
 annotate shardings, let XLA insert collectives):
@@ -19,36 +19,23 @@ annotate shardings, let XLA insert collectives):
     top-k merge — at (B*k, V<=20k) f32 this is tiny next to the gates
     GEMM traffic the sharding saves.
 
-The step's GEMMs run the jnp oracle (a ``pallas_call`` does not
-auto-partition under SPMD sharding propagation, and XLA's GEMM
-partitioning is where TP's win lives anyway) — but the fused Pallas
-LOGIT TAIL (matmul + streaming logsumexp + exact top-k,
-``kernel.make_logit_tail``, ≈2x the XLA tail single-chip) DOES run
-under TP as an explicit ``shard_map`` island over the 'model' axis:
-each chip runs the kernel on its vocab-column slice of ``ff_logit_W``
-(exactly the slice TP_RULES already places there), then one exact
-cross-shard merge — all_gather the per-shard (top-k vals, idx) and
-re-top-k the union (the same union-of-top-k exactness argument as
-``beam._topk_rows``), and a pmax/psum logsumexp combine.  Tie-breaks
-match ``lax.top_k`` (lowest global index): shards concatenate in
-axis-index order and per-shard results are already lowest-index-first
-among equals.  ``tail='off'`` restores the round-4 all-XLA behavior.
+The step runs the plain XLA path, logit tail included: a
+``pallas_call`` does not partition under sharding propagation, and
+XLA's GEMM partitioning is where TP's win lives.
 
 Parity invariant (tested on the virtual 8-device mesh): tp decode ==
 single-device ``beam_decode`` on tokens and scores, for temporal and
-spatial configs, with the tail island on and off.
+spatial configs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..config import ModelConfig
-from ..model import step as step_mod
 from ..train import parallel as tparallel
 from .beam import BeamOut, beam_decode
 
@@ -61,90 +48,9 @@ def shard_decode_params(params: Dict[str, Any], mesh) -> Dict[str, Any]:
     return tparallel.shard_state(params, mesh)
 
 
-def _tp_tail_factory(mesh):
-    """A ``make_logit_tail``-compatible factory whose tails run the
-    fused Pallas logit kernel PER SHARD under ``shard_map`` and merge
-    exactly across the 'model' axis.
-
-    Returned factory signature matches ``kernel.make_logit_tail(w, b,
-    k_sel)`` so ``beam_decode``/``greedy_decode`` pick it up off the
-    step function unchanged.  Returns ``None`` (caller keeps the
-    materialized-logits XLA path) when the vocab does not divide the
-    model axis — the same divisibility rule under which TP_RULES
-    replicates ``ff_logit_W``.
-
-    Exactness: the global top-k of a row is a subset of the union of
-    its per-shard top-k (``beam._topk_rows``'s argument), so one
-    ``lax.top_k`` over the all_gathered union is exact, including
-    lowest-index tie-breaks (shards concatenate in axis-index order;
-    per-shard output is sorted with lowest-index-first ties — both by
-    the kernel's insertion merge and by ``lax.top_k`` in the local
-    fallback).  The logsumexp merges as lse = m + log(Σ_shards
-    exp(lse_s − m)), m = pmax(lse_s).
-    """
-    from ..model import kernel as kmod
-
-    data, model = tparallel.DATA_AXIS, tparallel.MODEL_AXIS
-    mp = int(mesh.shape[model])
-
-    def mk(w, b, k_sel, tv: int = 0, tr_cap: int = 128):
-        dw, v = w.shape
-        if v % mp or (v // mp) < k_sel:
-            return None   # TP_RULES replicates ff_logit_W here too
-        vloc = v // mp
-
-        def local(act, w_l, b_l):
-            tail = kmod.make_logit_tail(w_l, b_l, k_sel, tv=tv,
-                                        tr_cap=tr_cap)
-            if tail is not None:
-                vals, idx, lse = tail(act)
-            else:
-                # shapes the kernel declines (e.g. dw not a multiple of
-                # 128 in small configs): same merge, local XLA slice
-                logits = jnp.dot(
-                    act, w_l, preferred_element_type=jnp.float32
-                ) + b_l.astype(jnp.float32)
-                vals, idx = jax.lax.top_k(logits, k_sel)
-                m_l = jnp.max(logits, axis=1)
-                lse = m_l + jnp.log(
-                    jnp.sum(jnp.exp(logits - m_l[:, None]), axis=1))
-            idx = idx + jax.lax.axis_index(model) * vloc
-            allv = jax.lax.all_gather(vals, model, axis=1, tiled=True)
-            alli = jax.lax.all_gather(idx, model, axis=1, tiled=True)
-            v2, pos = jax.lax.top_k(allv, k_sel)
-            i2 = jnp.take_along_axis(alli, pos, axis=1)
-            m = jax.lax.pmax(lse, model)
-            lse_g = m + jnp.log(jax.lax.psum(jnp.exp(lse - m), model))
-            return v2, i2, lse_g
-
-        def tail_fn(act):
-            sm = jax.shard_map(
-                local, mesh=mesh,
-                in_specs=(P(data, None), P(None, model), P(model)),
-                out_specs=(P(data, None), P(data, None), P(data)),
-                check_vma=False)   # pallas_call carries no vma rules
-            return sm(act, w, b)
-
-        return tail_fn
-
-    return mk
-
-
-def make_tp_step(mesh):
-    """jnp oracle step (its GEMMs auto-partition per the placed
-    TP_RULES shardings) carrying the shard_map Pallas tail island as
-    its ``make_logit_tail`` — the decode loops pick the tail up off the
-    step function (``beam.beam_decode``/``greedy.greedy_decode``)."""
-    def tp_step(params, cfg, state, sc, emb_t, x_pre=None):
-        return step_mod.step(params, cfg, state, sc, emb_t, x_pre)
-
-    tp_step.make_logit_tail = _tp_tail_factory(mesh)
-    return tp_step
-
-
 def make_tp_beam_decode(cfg: ModelConfig, mesh, beam_size: int = 5,
                         maxlen: int = 30, length_norm: float = 0.6,
-                        norm_mode: str = "gnmt", tail: str = "auto"
+                        norm_mode: str = "gnmt"
                         ) -> Callable[[Dict, Dict], BeamOut]:
     """Build a jitted TP beam decode: ``fn(params, batch) -> BeamOut``.
 
@@ -158,21 +64,13 @@ def make_tp_beam_decode(cfg: ModelConfig, mesh, beam_size: int = 5,
     Outputs are constrained to batch-sharded layout (leading axis over
     'data', replicated over 'model') so callers can np.asarray them
     without a surprise cross-device gather layout.
-
-    ``tail``: 'auto' = the shard_map Pallas tail island on TPU, the
-    all-XLA path elsewhere (off-TPU the kernel only runs in slow
-    interpret mode); 'tp' forces the island (parity tests / dryrun);
-    'off' forces the round-4 all-XLA behavior.
     """
     out_sharding = NamedSharding(mesh, P(tparallel.DATA_AXIS))
-    use_island = (tail == "tp" or
-                  (tail == "auto" and jax.default_backend() == "tpu"))
-    step_fn = make_tp_step(mesh) if use_island else None
 
     def run(params, batch):
         out = beam_decode(params, cfg, batch, beam_size=beam_size,
                           maxlen=maxlen, length_norm=length_norm,
-                          norm_mode=norm_mode, step_fn=step_fn)
+                          norm_mode=norm_mode)
         return jax.tree.map(
             lambda x: jax.lax.with_sharding_constraint(x, out_sharding),
             out)

@@ -12,10 +12,10 @@ Knobs beyond the reference:
     ``temperature == 0.0`` (static) is exact greedy argmax, and
     temperature -> 0 converges to greedy (tested).
   * ``top_k`` — truncated sampling among the k most likely words.  When
-    the step function provides the fused Pallas logit tail
-    (kernel.make_logit_tail), top-k sampling reuses it, so the
-    (rows, V) logits never materialize in HBM — sampling costs the
-    same as beam search per step.
+    the step function provides the fused logit tail
+    (kernel.make_logit_tail) and it takes the shape, top-k sampling
+    reuses it, so the (rows, V) logits never materialize in device
+    memory — sampling costs the same as beam search per step.
 """
 
 from __future__ import annotations
@@ -67,8 +67,8 @@ def sample_decode(
     use_topk = top_k > 0 and top_k < V
     ki = 1 if greedy else (top_k if use_topk else 0)
 
-    # fused Pallas logit tail: usable whenever only the top-ki logits
-    # are needed (greedy or truncated top-k sampling)
+    # fused logit tail: usable whenever only the top-ki logits are
+    # needed (greedy or truncated top-k sampling)
     mk_tail = getattr(step_fn, "make_logit_tail", None)
     tail = (mk_tail(params["ff_logit_W"], params["ff_logit_b"], ki)
             if (mk_tail is not None and ki > 0) else None)

@@ -34,13 +34,13 @@ tests/test_metrics.py):
      English task tuple; weighted P/R, fragmentation penalty).
   3. *Stemmer*: the 1.5 jar stems with the SNOWBALL English stemmer
      (org.tartarus.snowball.ext.englishStemmer), not the 1979 Porter
-     algorithm; the ``meteor15-en`` profile therefore uses NLTK's
-     SnowballStemmer("english") while ``meteor2005`` keeps the
-     PorterStemmer of the 2005 paper.  Snowball-vs-Porter divergences
+     algorithm; the ``meteor15-en`` profile therefore uses the Snowball
+     English stemmer while ``meteor2005`` keeps the Porter stemmer of
+     the 2005 paper (both in ``stem.py``, stem-for-stem equal to NLTK's).  Snowball-vs-Porter divergences
      (e.g. 'generously' → 'generous' vs 'gener') are pinned in tests.
   4. *Synonym stage*: the jar ships a WordNet-DERIVED synonym DB;
-     this box has no nltk_data, so production scoring runs exact+stem
-     (stage 2 silently off).  The stage LOGIC is jar-shaped
+     without WordNet data installed, production scoring runs
+     exact+stem (stage 2 silently off).  The stage LOGIC is jar-shaped
      (asymmetric ``hyp in syns(ref) or ref in syns(hyp)`` test) and
      activates with WordNet data OR an external table installed via
      ``set_synonym_table``/``load_synonym_table`` (CLI:
@@ -65,7 +65,7 @@ Common machinery for both profiles:
 
   * staged unigram alignment: exact -> Porter stem -> synonym (stage 2
     activates with WordNet data OR an injected ``_synonym_override``
-    table; this machine has no nltk_data, so production runs exact+stem
+    table; without WordNet data, production runs exact+stem
     — but the stage-2 logic itself is pinned by known-answer tests with
     injected tables, tests/test_metrics.py),
   * F_mean = P*R / (alpha*P + (1-alpha)*R),
@@ -80,6 +80,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+from . import stem as _stem_mod
 
 ALPHA = 0.9    # recall weight in F_mean: F = P*R / (a*P + (1-a)*R)
 BETA = 3.0    # fragmentation exponent
@@ -148,7 +150,7 @@ whether when where why how what which who whom whose
 """.split())
 
 
-_stemmers: Dict[str, object] = {}
+_stemmers = {"porter": _stem_mod.porter, "snowball": _stem_mod.snowball}
 _stem_caches: Dict[str, Dict[str, str]] = {"porter": {}, "snowball": {}}
 _active_stem_kind = "porter"   # module default = the 2005 profile's
 
@@ -158,23 +160,14 @@ def _stem(w: str) -> str:
     pure Python and dominates corpus-scale METEOR cost otherwise —
     vocab is small, captions repeat words constantly).
 
-    'porter' (2005 profile) = NLTK PorterStemmer; 'snowball'
-    (meteor15-en) = NLTK SnowballStemmer('english'), the same
-    algorithm as the 1.5 jar's org.tartarus englishStemmer.  Scoring
-    entry points switch the kind via ``_stem_kind`` per profile."""
+    'porter' (2005 profile) = Porter with NLTK's extensions;
+    'snowball' (meteor15-en) = Snowball English, the same algorithm as
+    the 1.5 jar's org.tartarus englishStemmer.  Scoring entry points
+    switch the kind via ``_stem_kind`` per profile."""
     cache = _stem_caches[_active_stem_kind]
     s = cache.get(w)
     if s is None:
-        st = _stemmers.get(_active_stem_kind)
-        if st is None:
-            if _active_stem_kind == "porter":
-                from nltk.stem.porter import PorterStemmer
-                st = PorterStemmer()
-            else:
-                from nltk.stem.snowball import SnowballStemmer
-                st = SnowballStemmer("english")
-            _stemmers[_active_stem_kind] = st
-        s = st.stem(w)
+        s = _stemmers[_active_stem_kind](w)
         cache[w] = s
     return s
 
@@ -214,7 +207,7 @@ def _get_wordnet():
 
 # Injectable synonym source: {word: set(synonyms)}.  Tests (and any
 # WordNet-free deployment with its own thesaurus) set this to exercise
-# the stage-2 logic without nltk_data; None = use WordNet when present.
+# the stage-2 logic without WordNet data; None = use WordNet when present.
 _synonym_override: Optional[Dict[str, set]] = None
 
 
@@ -234,7 +227,7 @@ def load_synonym_table(path: str) -> int:
     a WordNet installation elsewhere, or the jar's synonymy data
     converted offline) and install it via ``set_synonym_table``.
     Returns the number of headwords.  This is the scoring-time escape
-    hatch for boxes without nltk_data (jar-delta class 4 above);
+    hatch for installations without WordNet data (jar-delta class 4 above);
     CLI surface: ``cli/sample --synonyms table.json``."""
     import json
     with open(path) as f:

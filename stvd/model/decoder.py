@@ -3,7 +3,7 @@
 Reference: ``model_attention.py:§init_params`` (weight creation) and
 ``§build_model`` (teacher-forced training graph) — SURVEY.md §2/§3.2.
 
-TPU-first departures:
+Departures:
   * the time loop is ``lax.scan`` over a step function (shared verbatim
     with decoding — BASELINE requirement), not theano.scan,
   * with pure teacher forcing the vocab projection runs ONCE over the
@@ -197,10 +197,10 @@ def forward_train(
     Precedence note: with ``cfg.fused_seq_grad`` (the default) and pure
     teacher forcing, the scan runs the hand-derived sequence VJP
     (model/seqgrad.py), which has its own inlined step body — a caller-
-    supplied ``step_fn`` (e.g. the Pallas kernel) is intentionally NOT
-    consulted on that path; it is parity-pinned against the oracle and
-    faster than either step through the kernel (35.8 vs ~27 steps/s at
-    reference scale, v5e).  ``step_fn`` governs scheduled sampling,
+    supplied ``step_fn`` is intentionally NOT consulted on that path
+    (its fused logit tail serves decoding only); the hand VJP is
+    parity-pinned against autodiff of the step.  ``step_fn`` governs
+    scheduled sampling,
     spatial-without-fused-VJP, eval, and all decode paths.
     """
     step_fn = step_fn or step_mod.step

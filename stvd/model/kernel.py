@@ -1,1175 +1,238 @@
-"""Pallas TPU kernel: fused temporal-attention core.
+"""Pallas (Triton route) kernel: the fused decode logit tail.
 
-BASELINE mandates a fused Pallas decoder-step kernel shared by training
-and inference.  Profiling the step (SURVEY.md §3.2) shows the large
-matmuls (h-projection, LSTM gates, vocab logits) are already optimal on
-the MXU under XLA; the HBM-bandwidth-bound part is the attention chain
+Every beam step ends in ``logits = act @ ff_logit_W + b`` over the whole
+vocabulary, a log-softmax and a per-row top-k.  Left to XLA that writes
+the (rows, n_words) f32 logits to device memory and reads them back for
+the logsumexp and again for the top-k: at beam 5 x batch 384 and the
+MSVD vocabulary (1920 x 13056) about 100 MB per pass.  This kernel
+computes the logits tile by tile in registers and reduces each tile at
+once to (top-k values, top-k indices, running max, running sum-exp), so
+the logits never reach device memory.
 
-    tanh(pctx + Wd_att h)  ->  . U_att  ->  masked softmax_K  ->
-    ctx_t = sum_k alpha_k ctx_k  ->  beta-gated context
+Layout (Hopper, Triton route): the grid is (row blocks, vocab splits),
+all blocks independent.  Inside a block a loop walks the split's vocab
+tiles and carries an online max / sum-exp and a sorted running top-k.
+Each split writes its partial (top-k, max, sum-exp); a small XLA merge
+(``_merge_splits``) takes the top-k of the union of the splits'
+candidates and combines the logsumexp.  Ties resolve to the lowest
+global index, as ``lax.top_k`` does: within a tile the first pass takes
+the lowest index among equals, the running merge keeps earlier (lower
+index) entries ahead of equal later ones, and splits are merged in
+vocabulary order.
 
-which without fusion writes a (B, K, attn_dim) tanh intermediate to HBM
-every decode step.  This kernel keeps the whole chain in VMEM, tiled
-over the batch.
-
-Beam broadcasting: during beam search the recurrent state batch is
-``Bs = Bc * nb`` (nb beams per video) while the context stays at ``Bc``.
-The kernel grid tiles over ``Bc``; each program reads ONE context tile
-and all ``nb`` beams' states for it — the context is never tiled
-``nb``-fold in HBM (matching the jnp oracle's broadcast semantics).
-
-The surrounding step logic (``step.step_with_core``) is identical for
-the jnp oracle and this kernel, so swapping cores cannot change
-semantics — tests assert exact (1e-5) agreement, including gradients
-(custom VJP re-derives the backward from the jnp oracle).
-
-On non-TPU backends the kernel runs in interpreter mode (tests on CPU).
+The kernel is compiled only for the GPU.  ``interpret=True`` (tests)
+runs it in the Pallas interpreter; without it, lowering for any other
+platform raises.  Which step function a decode uses is chosen by
+``get_step_fn``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..config import ModelConfig
 from . import step as step_mod
 
-_NEG_INF = -1e30
-
-
-def _attn_core_kernel(scal_ref, hatt_ref, beta_ref, pctx_ref, ctx_ref,
-                      mask_ref, uatt_ref, ctx_t_ref, alpha_ref):
-    """One context tile: (Bt, K, A) attention chain fully in VMEM,
-    broadcast over the nb beams riding in the state refs (Bt*nb rows).
-
-    Batch-major operands are lifted to a singleton second-to-last dim
-    (h_att (Btn,1,A), mask (Bt,1,K), outputs (Btn,1,.)) so Mosaic's
-    tiling rule (second-to-last block dim % 8 or full) never constrains
-    the batch tile.
-
-    scal_ref (SMEM, (3,)): [c_att, b_sel, selector_flag]
-    """
-    c_att = scal_ref[0]
-    b_sel = scal_ref[1]
-    use_sel = scal_ref[2]
-
-    bt, k, a = pctx_ref.shape
-    btn = hatt_ref.shape[0]
-    nb = btn // bt
-    dc = ctx_ref.shape[-1]
-
-    h4 = hatt_ref[:, 0, :].reshape(bt, nb, 1, a)
-    e = jnp.tanh(pctx_ref[:][:, None, :, :] + h4)            # (Bt,nb,K,A)
-    u = uatt_ref[:][:, 0]
-    # score reduction over A as a VPU multiply-reduce (Mosaic has no
-    # batched dot; a width-1 MXU matmul would waste the systolic array)
-    scores = jnp.sum(e * u[None, None, None, :], axis=3) + c_att
-
-    mask = mask_ref[:, 0, :] > 0                              # (Bt, K)
-    scores = jnp.where(mask[:, None, :], scores, _NEG_INF)
-    m = jnp.max(scores, axis=2, keepdims=True)
-    ex = jnp.exp(scores - m)
-    ex = jnp.where(mask[:, None, :], ex, 0.0)
-    denom = jnp.maximum(jnp.sum(ex, axis=2, keepdims=True), 1e-20)
-    alpha = ex / denom                                        # (Bt,nb,K)
-
-    # ctx_t = sum_k alpha_k * ctx_k (multiply-reduce over K on the VPU)
-    ctx_t = jnp.sum(alpha[..., None] * ctx_ref[:][:, None, :, :], axis=2)
-
-    beta = jax.nn.sigmoid(beta_ref[:, 0, 0] + b_sel)          # (Bt*nb,)
-    gate = jnp.where(use_sel > 0, beta, jnp.ones_like(beta))
-    ctx_t_ref[:] = (ctx_t.reshape(btn, dc) * gate[:, None]).reshape(
-        btn, 1, dc)
-    alpha_ref[:] = alpha.reshape(btn, 1, k)
-
-
-_VMEM_BUDGET = 8 * 1024 * 1024  # leave headroom of the ~16MB VMEM
-
-
-def _pick_batch_tile(bc: int, nb: int, k: int, a: int, dc: int):
-    """Largest Bc tile whose working set fits VMEM, or None.
-
-    No Mosaic divisibility constraint on bt: every block with bt (or
-    bt*nb) in a tiled position carries a singleton second-to-last dim.
-    """
-    for t in (8, 4, 2, 1):
-        if bc % t:
-            continue
-        work = (t * nb * k * a + t * k * a + t * k * dc
-                + t * nb * dc) * 4
-        if work <= _VMEM_BUDGET:
-            return t
-    return None
-
-
-@functools.partial(jax.jit, static_argnames=("selector", "interpret"))
-def _attn_core_pallas_call(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
-                           c_att, b_sel, selector: bool, interpret: bool):
-    bc, k, a = pctx.shape
-    bs = h_att.shape[0]
-    nb = bs // bc
-    dc = ctx.shape[-1]
-    bt = _pick_batch_tile(bc, nb, k, a, dc)
-    assert bt is not None  # caller falls back to jnp when None
-    grid = (bc // bt,)
-    scal = jnp.stack([c_att.astype(jnp.float32),
-                      b_sel.astype(jnp.float32),
-                      jnp.float32(1.0 if selector else 0.0)])
-    f32 = jnp.float32
-    out_shape = (jax.ShapeDtypeStruct((bs, 1, dc), f32),
-                 jax.ShapeDtypeStruct((bs, 1, k), f32))
-    ctx_t, alpha = pl.pallas_call(
-        _attn_core_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),             # scalars
-            pl.BlockSpec((bt * nb, 1, a), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),             # h_att
-            pl.BlockSpec((bt * nb, 1, 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),             # beta_logit
-            pl.BlockSpec((bt, k, a), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),             # pctx
-            pl.BlockSpec((bt, k, dc), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),             # ctx
-            pl.BlockSpec((bt, 1, k), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),             # mask
-            pl.BlockSpec((a, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),             # U_att
-        ],
-        out_specs=(
-            pl.BlockSpec((bt * nb, 1, dc), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt * nb, 1, k), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(scal, h_att[:, None, :], beta_logit[:, :, None], pctx, ctx,
-      ctx_mask[:, None, :], u_att)
-    return ctx_t[:, 0, :], alpha[:, 0, :]
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(8,))
-def _core_diff(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att, b_sel,
-               selector):
-    interpret = jax.default_backend() != "tpu"
-    return _attn_core_pallas_call(
-        h_att.astype(jnp.float32),
-        beta_logit[:, None].astype(jnp.float32),
-        pctx.astype(jnp.float32), ctx.astype(jnp.float32),
-        ctx_mask.astype(jnp.float32),
-        u_att[:, None].astype(jnp.float32),
-        jnp.asarray(c_att), jnp.asarray(b_sel),
-        selector, interpret)
-
-
-def _core_fwd(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att, b_sel,
-              selector):
-    out = _core_diff(h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att,
-                     b_sel, selector)
-    return out, (h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att, b_sel)
-
-
-def _core_bwd(selector, res, g):
-    """Backward via the jnp oracle's VJP (rematerialized forward, fully
-    XLA-fused — the fused Pallas forward stays on the hot decode path,
-    while training's backward is standard XLA)."""
-    h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att, b_sel = res
-
-    def f(h_att, beta_logit, pctx, ctx, u_att, c_att, b_sel):
-        return step_mod._attention_core_jnp(
-            h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att, b_sel,
-            selector)
-
-    _, vjp = jax.vjp(f, h_att, beta_logit, pctx, ctx, u_att, c_att, b_sel)
-    dh, dbeta, dpctx, dctx, du, dc_att, db_sel = vjp(g)
-    return (dh, dbeta, dpctx, dctx, jnp.zeros_like(ctx_mask), du, dc_att,
-            db_sel)
-
-
-_core_diff.defvjp(_core_fwd, _core_bwd)
-
-
-# ---------------------------------------------------------------------------
-# Spatial-attention core (config 2): softmax over R regions per frame.
-# The per-step working set (B, K, R, s_attn) is the framework's largest
-# activation; fusing tanh->score->softmax->weighted-sum keeps it in VMEM.
-# ---------------------------------------------------------------------------
-
-def _spatial_kernel(scal_ref, hs_ref, pregion_ref, regions_ref, us_ref,
-                    spat_ref, alpha_ref):
-    """One (batch-tile, frame) program: softmax over R regions fully in
-    VMEM, broadcast over the nb beams riding in hs_ref (bt*nb rows).
-
-    The kt frame-tile dim was removed (one frame per program): merging
-    (bt, nb, kt, R) back to the (bt*nb, kt, 1, R) block layout tripped
-    a Mosaic relayout bug at reference scale ('non-singleton logical
-    dimension is replicated in destination'); the 3-D output pattern
-    below is byte-for-byte the temporal kernel's, which compiles."""
-    c_s = scal_ref[0]
-    bt, r, s = pregion_ref.shape[0], pregion_ref.shape[2], \
-        pregion_ref.shape[3]
-    btn = hs_ref.shape[0]
-    nb = btn // bt
-    dr = regions_ref.shape[-1]
-
-    u = us_ref[:][:, 0]
-    if nb == 1:
-        # no beam axis: never materialize (bt, 1, ...) — squeezing a
-        # middle singleton trips the same Mosaic relayout bug
-        e = jnp.tanh(pregion_ref[:, 0] + hs_ref[:, 0, :][:, None, :])
-        scores = jnp.sum(e * u[None, None, :], axis=2) + c_s  # (bt, R)
-        m = jnp.max(scores, axis=1, keepdims=True)
-        ex = jnp.exp(scores - m)
-        alpha = ex / jnp.maximum(jnp.sum(ex, axis=1, keepdims=True),
-                                 1e-20)
-        spat = jnp.sum(alpha[..., None] * regions_ref[:, 0], axis=1)
-    else:
-        h4 = hs_ref[:, 0, :].reshape(bt, nb, 1, s)
-        e = jnp.tanh(pregion_ref[:, 0][:, None] + h4)   # (bt, nb, R, s)
-        scores = jnp.sum(e * u[None, None, None, :], axis=3) + c_s
-        m = jnp.max(scores, axis=2, keepdims=True)
-        ex = jnp.exp(scores - m)
-        alpha = ex / jnp.maximum(jnp.sum(ex, axis=2, keepdims=True),
-                                 1e-20)
-        spat = jnp.sum(alpha[..., None] * regions_ref[:, 0][:, None],
-                       axis=2)
-        # staged reshape: merge (bt, nb) to 2-D first (single-shot
-        # 3D->4D merges trip the Mosaic relayout)
-        spat = spat.reshape(btn, dr)
-        alpha = alpha.reshape(btn, r)
-    spat_ref[:] = spat.reshape(btn, 1, 1, dr)
-    alpha_ref[:] = alpha.reshape(btn, 1, 1, r)
-
-
-def _pick_spatial_tiles(bc: int, k: int, nb: int, r: int, s: int, dr: int):
-    """(bt, 1) whose working set fits VMEM, or None (caller falls back
-    to jnp).  The e intermediate (bt, nb, R, s) dominates; one frame
-    per program (see _spatial_kernel)."""
-    for bt in (8, 4, 2, 1):
-        if bc % bt:
-            continue
-        work = (bt * nb * r * s + bt * r * (s + dr)
-                + bt * nb * (dr + r)) * 4
-        if work <= _VMEM_BUDGET:
-            return bt, 1
-    return None
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _spatial_pallas_call(h_satt, pregion, regions, u_s, c_s,
-                         interpret: bool):
-    bc, k, r, s = pregion.shape
-    bs = h_satt.shape[0]
-    nb = bs // bc
-    dr = regions.shape[-1]
-    tiles = _pick_spatial_tiles(bc, k, nb, r, s, dr)
-    assert tiles is not None  # caller falls back to jnp when None
-    bt = tiles[0]
-    grid = (bc // bt, k)
-    scal = jnp.stack([c_s.astype(jnp.float32)])
-    out_shape = (jax.ShapeDtypeStruct((bs, k, 1, dr), jnp.float32),
-                 jax.ShapeDtypeStruct((bs, k, 1, r), jnp.float32))
-    spat, alpha = pl.pallas_call(
-        _spatial_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),              # scalars
-            pl.BlockSpec((bt * nb, 1, s), lambda i, j: (i, 0, 0),
-                         memory_space=pltpu.VMEM),              # h_satt
-            pl.BlockSpec((bt, 1, r, s), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),              # pregion
-            pl.BlockSpec((bt, 1, r, dr), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),              # regions
-            pl.BlockSpec((s, 1), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM),              # Us_att
-        ],
-        out_specs=(
-            pl.BlockSpec((bt * nb, 1, 1, dr), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt * nb, 1, 1, r), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(scal, h_satt[:, None, :], pregion, regions, u_s)
-    return spat[:, :, 0, :], alpha[:, :, 0, :]
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=())
-def _spatial_diff(h_satt, pregion, regions, u_s, c_s):
-    interpret = jax.default_backend() != "tpu"
-    return _spatial_pallas_call(
-        h_satt.astype(jnp.float32), pregion.astype(jnp.float32),
-        regions.astype(jnp.float32), u_s[:, None].astype(jnp.float32),
-        jnp.asarray(c_s), interpret)
-
-
-def _spatial_fwd(h_satt, pregion, regions, u_s, c_s):
-    return (_spatial_diff(h_satt, pregion, regions, u_s, c_s),
-            (h_satt, pregion, regions, u_s, c_s))
-
-
-def _spatial_bwd(res, g):
-    h_satt, pregion, regions, u_s, c_s = res
-
-    def f(h_satt, pregion, regions, u_s, c_s):
-        spat, alpha = step_mod._spatial_core_jnp(
-            h_satt, pregion, regions, u_s, c_s, jnp.float32)
-        bs = h_satt.shape[0]
-        return (spat.reshape(bs, *spat.shape[2:]),
-                alpha.reshape(bs, *alpha.shape[2:]))
-
-    _, vjp = jax.vjp(f, h_satt, pregion, regions, u_s, c_s)
-    return vjp(g)
-
-
-_spatial_diff.defvjp(_spatial_fwd, _spatial_bwd)
-
-
-def spatial_core_pallas(h_satt, pregion, regions, u_s, c_s, cdtype
-                        ) -> Tuple[jax.Array, jax.Array]:
-    """Pallas drop-in for ``step._spatial_core_jnp`` (same contract:
-    returns (Bc, nb, K, Dr) / (Bc, nb, K, R)).
-
-    Compiles under Mosaic at full reference scale incl. beams (one
-    frame per program; parity pinned on-chip).  NOTE measured v5e
-    result: XLA's own fusion of this chain (tanh folded into the
-    reduce, nothing materialized) is 1.5-2.4x FASTER at every TPU shape
-    tested (e.g. 2.6 vs 5.2 ms at Bc=64/nb=5/R=49/s=1024), so
-    ``step_pallas`` uses the XLA core by default and this kernel is
-    kept for coverage/verification (decode loops can opt in via
-    ``step_pallas_spatial``).  Falls back to the jnp oracle when no
-    tiling fits VMEM.
-    """
-    bc, k, r, s = pregion.shape
-    bs = h_satt.shape[0]
-    nb = bs // bc
-    if _pick_spatial_tiles(bc, k, nb, r, s, regions.shape[-1]) is None:
-        return step_mod._spatial_core_jnp(h_satt, pregion, regions, u_s,
-                                          c_s, cdtype)
-    spat, alpha = _spatial_diff(h_satt, pregion, regions, u_s, c_s)
-    return (spat.reshape(bc, nb, *spat.shape[1:]),
-            alpha.reshape(bc, nb, *alpha.shape[1:]))
-
-
-# ---------------------------------------------------------------------------
-# Fused backward-spatial block (config-2 TRAINING).
-#
-# Used inside the hand-derived sequence VJP (seqgrad._bwd_spatial).  Per
-# backward step the spatial stage must (a) recompute the (B, K, R, s)
-# tanh ``e_s`` from ``pregion`` (the framework's largest activation —
-# 176 MB bf16 at reference scale), (b) run the region-softmax backward,
-# (c) accumulate the pregion cotangent ``Dpe += dpe_s`` (a 352 MB
-# read+write of the accumulator), and (d) reduce ``du_s``/``dh_satt``.
-# Under XLA the ``e_s`` recompute and the ``dpe_s`` intermediate cost
-# extra HBM round-trips; this kernel keeps both entirely in VMEM, reads
-# ``pregion``/``regions`` exactly once, and updates the accumulator in
-# place (``input_output_aliases``).
-#
-# It ALSO computes the NEXT (reverse-order) step's ``spat_{t-1}`` from
-# the regions block already resident in VMEM — the backward scan carries
-# ``spat`` instead of re-reading the 176 MB ``regions`` a second time
-# per step for the standalone einsum (see seqgrad._bwd_spatial).
-#
-# Training only (nb = 1): decode never accumulates weight gradients.
-# Reference: the theano grad of the spatial lstm_cond_layer scan
-# (``model_attention.py:§build_model`` — SURVEY.md §3.2).
-# ---------------------------------------------------------------------------
-
-def _make_spatial_bwd_kernel(cd, adt):
-    cdtype = jnp.dtype(cd)
-    adtype = jnp.dtype(adt)
-
-    def kernel(hs_ref, pregion_ref, regions_ref, alpha_ref, alphap_ref,
-               dspat_ref, us_ref, dpe_in_ref,
-               dpe_out_ref, dh_ref, du_ref, dss_ref, spatp_ref):
-        # Mosaic tiling rule: the last two dims of every block must be
-        # divisible by (8, 128) or equal the array dims — hence every
-        # (B, K, x)-shaped operand rides with an explicit singleton
-        # third dim ((B, K, 1, x), block (bt, 1, 1, x)), same pattern
-        # as the forward kernels' outputs.
-        i = pl.program_id(0)
-        j = pl.program_id(1)
-        first = jnp.logical_and(i == 0, j == 0)
-        bt = pregion_ref.shape[0]
-        r, s = pregion_ref.shape[2], pregion_ref.shape[3]
-        dr = regions_ref.shape[-1]
-
-        pre = pregion_ref[:, 0]                       # (bt, R, s) cd
-        reg = regions_ref[:, 0]                       # (bt, R, Dr) cd
-        h = hs_ref[:, 0, :].astype(cdtype)            # (bt, s)
-        e_s = jnp.tanh(pre + h[:, None, :])           # (bt, R, s) cd
-
-        # d[alpha_s] = dspat . regions^T  (VPU multiply-reduce over Dr)
-        dsp = dspat_ref[:, 0, 0].astype(jnp.float32)  # (bt, Dr)
-        dalpha = jnp.sum(reg.astype(jnp.float32) * dsp[:, None, :],
-                         axis=2)                      # (bt, R)
-        al = alpha_ref[:, 0, 0].astype(jnp.float32)   # (bt, R)
-        dss = al * (dalpha - jnp.sum(al * dalpha, axis=1, keepdims=True))
-        dss_ref[:] = dss.reshape(bt, 1, 1, r)
-
-        # du_s contribution: sum_{b,r} dss * e_s  -> (1, 1, s).
-        # Reductions over the sublane (R) axis use keepdims=True: a
-        # squeezing sublane reduce produces a replicated-layout vector
-        # Mosaic cannot relayout ('non-singleton logical dimension is
-        # replicated' — same bug class the forward spatial kernel
-        # works around).  Minor-dim inserts ([:, :, None]) happen in
-        # f32 only: Mosaic rejects non-no-op minor inserts for 16-bit.
-        e32 = e_s.astype(jnp.float32)
-        du_c = jnp.sum(jnp.sum(dss[:, :, None] * e32, axis=1,
-                               keepdims=True),
-                       axis=0, keepdims=True
-                       ).reshape(1, s)                 # (1, s)
-
-        # dpe_s through the tanh; accumulate Dpe in place
-        u32 = us_ref[:, 0]                             # (s,) f32
-        dpe = ((dss[:, :, None] * u32[None, None, :]).astype(cdtype)
-               * (1.0 - e_s * e_s))                    # (bt, R, s) cd
-        dpe_out_ref[:, 0] = dpe_in_ref[:, 0] + dpe.astype(adtype)
-        dh_c = jnp.sum(dpe.astype(jnp.float32), axis=1,
-                       keepdims=True)                  # (bt, 1, s)
-
-        # next reverse-order step's spat from the SAME regions block:
-        # spat_{t-1} = sum_r alpha_s^{t-1}_r * regions_r
-        alp = alphap_ref[:, 0, 0].astype(jnp.float32)  # (bt, R)
-        spatp = jnp.sum(alp[:, :, None].astype(cdtype) * reg,
-                        axis=1, keepdims=True)         # (bt, 1, Dr) cd
-        spatp_ref[:] = spatp.reshape(bt, 1, 1, dr)
-
-        @pl.when(j == 0)
-        def _():
-            dh_ref[:] = dh_c
-
-        @pl.when(j != 0)
-        def _():
-            dh_ref[:] = dh_ref[:] + dh_c
-
-        @pl.when(first)
-        def _():
-            du_ref[:] = du_c
-
-        @pl.when(jnp.logical_not(first))
-        def _():
-            du_ref[:] = du_ref[:] + du_c
-
-    return kernel
-
-
-def _pick_spatial_bwd_tile(b, k, r, s, dr, cd_bytes, ad_bytes):
-    """Largest batch tile whose double-buffered blocks + temps fit VMEM,
-    or None (caller falls back to the jnp path)."""
-    for bt in (8, 4, 2, 1):
-        if b % bt:
-            continue
-        blocks = (bt * r * s * cd_bytes          # pregion
-                  + bt * r * dr * cd_bytes       # regions
-                  + bt * r * s * ad_bytes * 2    # Dpe in + out
-                  + bt * (2 * s + dr + 3 * r) * 4
-                  + bt * dr * cd_bytes + s * 4)
-        temps = bt * r * s * (2 * cd_bytes + 8)  # e_s, dpe, e32/f32 temp
-        if blocks * 2 + temps <= _VMEM_BUDGET:
-            return bt
-    return None
-
-
-@functools.partial(jax.jit, static_argnames=("cd", "adt", "interpret"))
-def _spatial_bwd_pallas_call(h_satt, pregion, regions, alpha_s, alpha_prev,
-                             dspat, u_s, dpe_acc, cd: str, adt: str,
-                             interpret: bool):
-    b, k, r, s = pregion.shape
-    dr = regions.shape[-1]
-    cdtype, adtype = jnp.dtype(cd), jnp.dtype(adt)
-    bt = _pick_spatial_bwd_tile(b, k, r, s, dr, cdtype.itemsize,
-                                adtype.itemsize)
-    assert bt is not None  # caller falls back to jnp when None
-    grid = (b // bt, k)
-    f32 = jnp.float32
-    out_shape = (jax.ShapeDtypeStruct((b, k, r, s), adtype),   # Dpe
-                 jax.ShapeDtypeStruct((b, 1, s), f32),         # dh_satt
-                 jax.ShapeDtypeStruct((1, s), f32),            # du_s
-                 jax.ShapeDtypeStruct((b, k, 1, r), f32),      # dss
-                 jax.ShapeDtypeStruct((b, k, 1, dr), cdtype))  # spat_prev
-    dpe_out, dh, du, dss, spatp = pl.pallas_call(
-        _make_spatial_bwd_kernel(cd, adt),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bt, 1, s), lambda i, j: (i, 0, 0),
-                         memory_space=pltpu.VMEM),             # h_satt
-            pl.BlockSpec((bt, 1, r, s), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),             # pregion
-            pl.BlockSpec((bt, 1, r, dr), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),             # regions
-            pl.BlockSpec((bt, 1, 1, r), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),             # alpha_s
-            pl.BlockSpec((bt, 1, 1, r), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),             # alpha_prev
-            pl.BlockSpec((bt, 1, 1, dr), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),             # dspat
-            pl.BlockSpec((s, 1), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM),             # u_s
-            pl.BlockSpec((bt, 1, r, s), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),             # Dpe in
-        ],
-        out_specs=(
-            pl.BlockSpec((bt, 1, r, s), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, 1, s), lambda i, j: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, s), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, 1, 1, r), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bt, 1, 1, dr), lambda i, j: (i, j, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=out_shape,
-        input_output_aliases={7: 0},
-        interpret=interpret,
-    )(h_satt[:, None, :], pregion, regions, alpha_s[:, :, None],
-      alpha_prev[:, :, None], dspat[:, :, None], u_s[:, None], dpe_acc)
-    return dpe_out, dh[:, 0], du[0], dss[:, :, 0], spatp[:, :, 0]
-
-
-def spatial_bwd_pallas(h_satt, pregion, regions, alpha_s, alpha_prev,
-                       dspat, u_s, dpe_acc, cd: str):
-    """Fused backward-spatial step for seqgrad._bwd_spatial.
-
-    Returns (dpe_acc_new, dh_satt (B,s) f32, du_s (s,) f32,
-    dss (B,K,R) f32, spat_prev (B,K,Dr) compute-dtype), or None when no
-    tiling fits VMEM (caller keeps the jnp path).
-    """
-    b, k, r, s = pregion.shape
-    cdtype = jnp.dtype(cd)
-    adtype = dpe_acc.dtype
-    if _pick_spatial_bwd_tile(b, k, r, s, regions.shape[-1],
-                              cdtype.itemsize, adtype.itemsize) is None:
-        return None
-    interpret = jax.default_backend() != "tpu"
-    return _spatial_bwd_pallas_call(
-        h_satt.astype(jnp.float32), pregion.astype(cdtype),
-        regions.astype(cdtype), alpha_s.astype(jnp.float32),
-        alpha_prev.astype(jnp.float32), dspat.astype(jnp.float32),
-        u_s.astype(jnp.float32), dpe_acc, cd, str(adtype), interpret)
-
-
-def attention_core_pallas(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
-                          c_att, b_sel, selector: bool
-                          ) -> Tuple[jax.Array, jax.Array]:
-    """Pallas drop-in for ``step._attention_core_jnp`` (same signature,
-    beam-broadcast aware, differentiable via custom VJP).  Falls back to
-    the jnp oracle when no Mosaic-legal tiling fits VMEM."""
-    bc, k, a = pctx.shape
-    nb = h_att.shape[0] // bc
-    if _pick_batch_tile(bc, nb, k, a, ctx.shape[-1]) is None:
-        return step_mod._attention_core_jnp(
-            h_att, beta_logit, pctx, ctx, ctx_mask, u_att, c_att, b_sel,
-            selector)
-    return _core_diff(h_att, beta_logit, pctx, ctx, ctx_mask, u_att,
-                      jnp.asarray(c_att), jnp.asarray(b_sel), selector)
-
-
-# ---------------------------------------------------------------------------
-# Fused logit tail: vocab matmul + streaming logsumexp + streaming top-k.
-#
-# Round-2 profiling (tools/profile_decode.py on v5e-1, beam=5, b=256)
-# showed XLA's top_k over (B*k, 13056) at 0.62 ms/step — 24% of the
-# whole decode step — plus ~0.3 ms/step materializing the f32
-# (B*k, n_words) logits+logp in HBM, and at b=512 those tensors blow the
-# VMEM working set and regress everything around them.  This kernel
-# computes the vocab logits TILE BY TILE in VMEM and reduces them
-# immediately to (top-k values, top-k indices, logsumexp) — the
-# (rows, n_words) matrix never exists in HBM.
-# ---------------------------------------------------------------------------
-
-_IDX_BIG = 2 ** 30   # plain int: jnp scalars would be captured consts
-
-
-def _make_tail_kernel(k_sel: int, tv: int, tr: int):
-    def kernel(x_ref, w_ref, b_ref, vals_ref, idx_ref, lse_ref,
-               m_scr, s_scr, bv_scr, bi_scr):
-        # Grid is (vocab tiles OUTER, row tiles INNER): the (dw, tv)
-        # weight tile stays resident in VMEM across the whole inner row
-        # sweep, so the vocab matrix is streamed from HBM exactly ONCE
-        # per step instead of once per row tile (at rows=1920/tr=128
-        # that was 15x13.4 MB = 200 MB/step -> 13.4 MB/step).  Running
-        # (max, sumexp, top-k) state for ALL row tiles lives in scratch,
-        # sliced per inner iteration.
-        j = pl.program_id(0)
-        i = pl.program_id(1)
-        nv = pl.num_programs(0)
-        sl = pl.ds(i * tr, tr)
-
-        logits = jnp.dot(x_ref[:], w_ref[:],
-                         preferred_element_type=jnp.float32) + b_ref[:]
-
-        zero_v = jnp.full((tr, k_sel), _NEG_INF, jnp.float32)
-        zero_i = jnp.zeros((tr, k_sel), jnp.int32)
-        first = j == 0
-        m_old = jnp.where(first, _NEG_INF, m_scr[sl, :])
-        s_old = jnp.where(first, 0.0, s_scr[sl, :])
-        bv = jnp.where(first, zero_v, bv_scr[sl, :])
-        bi = jnp.where(first, zero_i, bi_scr[sl, :])
-
-        # streaming logsumexp (flash-softmax style rescaling)
-        tile_max = jnp.max(logits, axis=1, keepdims=True)        # (TR,1)
-        m_new = jnp.maximum(m_old, tile_max)
-        s_new = (s_old * jnp.exp(m_old - m_new)
-                 + jnp.sum(jnp.exp(logits - m_new), axis=1,
-                           keepdims=True))
-        m_scr[sl, :] = m_new
-        s_scr[sl, :] = s_new
-
-        # streaming top-k: k_sel masked-max passes over the tile, each
-        # candidate insertion-merged into the running sorted top-k.
-        # Ties resolve to the lowest global index (jax.lax.top_k
-        # semantics): within a tile the first pass takes the lowest
-        # index among equals, and the merge keeps existing (earlier,
-        # lower-index) entries ahead of equal-valued candidates.
-        cols = (jax.lax.broadcasted_iota(jnp.int32, (tr, tv), 1)
-                + j * tv)
-        lt = logits
-        for _ in range(k_sel):
-            v = jnp.max(lt, axis=1, keepdims=True)               # (TR,1)
-            ismax = lt == v
-            iv = jnp.min(jnp.where(ismax, cols, _IDX_BIG), axis=1,
-                         keepdims=True)                          # (TR,1)
-            lt = jnp.where(cols == iv, _NEG_INF, lt)
-            # insertion merge into the sorted running top-k
-            rank = jnp.sum((bv >= v).astype(jnp.int32), axis=1,
-                           keepdims=True)                        # (TR,1)
-            new_v, new_i = [], []
-            for p in range(k_sel):
-                keep = rank > p
-                ins = rank == p
-                pv = bv[:, p - 1:p] if p > 0 else v
-                pi = bi[:, p - 1:p] if p > 0 else iv
-                new_v.append(jnp.where(keep, bv[:, p:p + 1],
-                                       jnp.where(ins, v, pv)))
-                new_i.append(jnp.where(keep, bi[:, p:p + 1],
-                                       jnp.where(ins, iv, pi)))
-            bv = jnp.concatenate(new_v, axis=1)
-            bi = jnp.concatenate(new_i, axis=1)
-        bv_scr[sl, :] = bv
-        bi_scr[sl, :] = bi
-
-        # the (tr, k) output blocks are cheap: write the running state
-        # every visit; the j == nv-1 sweep overwrites with the final
-        # values (HBM blocks are committed per visit, last write wins)
-        vals_ref[:] = bv
-        idx_ref[:] = bi
-        lse_ref[:] = m_new + jnp.log(jnp.maximum(s_new, 1e-38))
-
-    return kernel
+_NEG = -1e30          # padded vocab bias and "already taken" sentinel
+_IDX_BIG = 2 ** 30    # plain int: jnp scalars would be captured consts
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _pick_row_tile(rows: int, cap: int = 256) -> int:
-    for tr in (256, 128, 64, 32, 16, 8):
-        if tr <= cap and rows % tr == 0:
-            return tr
-    return 8
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 
-def _pick_vocab_tile(v: int, cap: int = 4608) -> int:
-    # cap tuned on v5e-1: tv=4352/tr=128 ran 0.537 ms/step at
-    # (1280x512)@(512x13056) vs 0.646 at tv=2176 and 1.014 for the XLA
-    # matmul+log_softmax+top_k path (tv=6528 fails to compile: VMEM)
-    """Largest 128-multiple tile <= cap whose padded vocab
-    round_up(v, tile) wastes <= 3% work.
+def _make_tail_kernel(k_sel: int, kp: int, tr: int, tv: int, tk: int,
+                      dw: int, n_tiles: int, split_w: int):
+    """One (row block i, vocab split j) program."""
 
-    The round-2 version required the tile to DIVIDE round_up(v, 128)
-    exactly, with a dead padding fallback — at v=20096 (= 157 x 128,
-    157 prime) that left tv=128: a 157-iteration vocab grid of tiny
-    matmul tiles, measured 8.53 ms/step vs 0.54 at v=13056 — the
-    entire preset-4 serial_roofline_ratio=4.9 gap (round 3,
-    tools/probe_p4_decode.py).  Padding the vocab copy (built once per
-    decode program, -inf bias lanes) to 20480 = 5 x 4096 is ~2% extra
-    work for a 5-iteration grid."""
-    v128 = _round_up(v, 128) // 128
-    if v128 * 128 <= cap:
-        return v128 * 128                  # whole vocab in one tile
-    # candidates: MXU-healthy tiles (>= 2048); among admissible waste,
-    # minimize padded work first, then take the widest tile
-    for max_waste in (0.03, 0.06, 0.12, 1.0):
-        best = None                        # (vp, -tv)
-        for d in range(16, min(cap // 128, v128) + 1):
-            tv = d * 128
-            vp = _round_up(v128, d) * 128
-            if vp / max(v, 1) - 1.0 <= max_waste:
-                key = (vp, -tv)
-                if best is None or key < best:
-                    best = key
-        if best is not None:
-            return -best[1]
-    return 2048
+    def kernel(x_ref, w_ref, b_ref, vals_ref, idx_ref, m_ref, s_ref):
+        i = pl.program_id(0)
+        j = pl.program_id(1)
+        rows = pl.ds(i * tr, tr)
+        col0 = j * split_w
+
+        def tile(t, carry):
+            m_old, s_old, bv, bi = carry
+            c0 = col0 + t * tv
+            logits = jnp.zeros((tr, tv), jnp.float32)
+            for kc in range(dw // tk):
+                logits += pl.dot(x_ref[rows, pl.ds(kc * tk, tk)],
+                                 w_ref[pl.ds(kc * tk, tk), pl.ds(c0, tv)])
+            logits += b_ref[pl.ds(c0, tv)][None, :]
+
+            # online logsumexp
+            m_new = jnp.maximum(m_old, jnp.max(logits, axis=1))
+            s_new = (s_old * jnp.exp(m_old - m_new)
+                     + jnp.sum(jnp.exp(logits - m_new[:, None]), axis=1))
+
+            # k extraction passes over the tile, each candidate
+            # insertion-merged into the sorted running top-k (a list of
+            # k (tr,) vectors: Triton tensors need power-of-two shapes)
+            cols = jax.lax.broadcasted_iota(jnp.int32, (tr, tv), 1) + c0
+            lt = logits
+            bv, bi = list(bv), list(bi)
+            for _ in range(k_sel):
+                v = jnp.max(lt, axis=1)
+                iv = jnp.min(jnp.where(lt == v[:, None], cols, _IDX_BIG),
+                             axis=1)
+                lt = jnp.where(cols == iv[:, None], _NEG, lt)
+                rank = sum((b >= v).astype(jnp.int32) for b in bv)
+                nv, ni = [], []
+                for p in range(k_sel):
+                    keep, ins = rank > p, rank == p
+                    pv = bv[p - 1] if p else v
+                    pi = bi[p - 1] if p else iv
+                    nv.append(jnp.where(keep, bv[p], jnp.where(ins, v, pv)))
+                    ni.append(jnp.where(keep, bi[p], jnp.where(ins, iv, pi)))
+                bv, bi = nv, ni
+            return m_new, s_new, tuple(bv), tuple(bi)
+
+        init = (jnp.full((tr,), _NEG, jnp.float32),
+                jnp.zeros((tr,), jnp.float32),
+                tuple(jnp.full((tr,), _NEG, jnp.float32)
+                      for _ in range(k_sel)),
+                tuple(jnp.zeros((tr,), jnp.int32) for _ in range(k_sel)))
+        m, s, bv, bi = jax.lax.fori_loop(0, n_tiles, tile, init)
+
+        # pack the k vectors into one power-of-two (tr, kp) tile
+        kcol = jax.lax.broadcasted_iota(jnp.int32, (tr, kp), 1)
+        vals = jnp.full((tr, kp), _NEG, jnp.float32)
+        idx = jnp.zeros((tr, kp), jnp.int32)
+        for p in range(k_sel):
+            vals = jnp.where(kcol == p, bv[p][:, None], vals)
+            idx = jnp.where(kcol == p, bi[p][:, None], idx)
+        vals_ref[j, rows, :] = vals
+        idx_ref[j, rows, :] = idx
+        m_ref[j, rows] = m
+        s_ref[j, rows] = s
+
+    return kernel
 
 
-def _shrink_tail_tv(tv: int, vp: int, rp: int, tr: int, dw: int,
-                    w_bytes: int, x_bytes: int, k_sel: int) -> int:
-    """VMEM-fit the vocab tile: double-buffered w tile + x tile + ~2
-    live f32 logits copies in the selection passes, plus a per-ROW term
-    (running scratch and the small outputs XLA keeps in VMEM,
-    lane-padded to 128).  Coefficients calibrated against Mosaic's
-    actual scoped allocation (measured: tv=4352 rp=1920 -> ~15.6 MB
-    compiles; rp=2560 -> 16.54 MB fails the 16 MB limit — the b=512
-    beam-5 regression).  Halve the vocab tile until the estimate fits:
-    with the vocab-outer grid tv no longer affects HBM traffic, only
-    VMEM."""
-    def est(tv_):
-        tiles = 2 * dw * tv_ * w_bytes + 2 * tr * dw * x_bytes \
-            + 2 * tr * tv_ * 4
-        # 3 lane-padded VMEM outputs (128 lanes x 4B) + scratch per row
-        return tiles + rp * (3 * 128 * 4 + 8 * k_sel)
-    while tv >= 256 and est(tv) > int(16.3 * 2 ** 20) and tv % 2 == 0 \
-            and vp % (tv // 2) == 0:
-        tv //= 2
-    return tv
+def _merge_splits(vals, idx, m, s, k_sel: int):
+    """Exact merge of per-split partials: the global top-k of a row lies
+    in the union of its per-split top-k, and splits are concatenated in
+    vocabulary order so ``lax.top_k``'s lowest-position tie-break is the
+    lowest global index."""
+    ns, rows, _ = vals.shape
+    cand_v = vals[:, :, :k_sel].transpose(1, 0, 2).reshape(rows, ns * k_sel)
+    cand_i = idx[:, :, :k_sel].transpose(1, 0, 2).reshape(rows, ns * k_sel)
+    v2, pos = jax.lax.top_k(cand_v, k_sel)
+    i2 = jnp.take_along_axis(cand_i, pos, axis=1)
+    mg = jnp.max(m, axis=0)
+    lse = mg + jnp.log(jnp.maximum(
+        jnp.sum(s * jnp.exp(m - mg[None, :]), axis=0), 1e-38))
+    return v2, i2, lse
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("k_sel", "tv", "tr_cap", "interpret"))
-def _tail_pallas_call(x, w, b, k_sel: int, tv: int, tr_cap: int,
-                      interpret: bool):
+@functools.partial(jax.jit, static_argnames=(
+    "k_sel", "tr", "tv", "tk", "splits", "num_warps", "num_stages",
+    "interpret"))
+def _tail_call(x, w, b, k_sel: int, tr: int, tv: int, tk: int, splits: int,
+               num_warps: int, num_stages: int, interpret: bool):
     rows, dw = x.shape
     vp = w.shape[1]
-    rp = _round_up(rows, 8)
-    tr = _pick_row_tile(rp, tr_cap)
+    rp = _round_up(rows, tr)
     if rp != rows:
         x = jnp.pad(x, ((0, rp - rows), (0, 0)))
-    tv = _shrink_tail_tv(tv, vp, rp, tr, dw, w.dtype.itemsize,
-                         x.dtype.itemsize, k_sel)
-    nv = vp // tv
-    # vocab OUTER, rows INNER: weight tile resident across the row
-    # sweep -> vocab matrix read from HBM once per call, x re-read nv
-    # times (nv ~ 3-6, x is ~100x smaller than w)
-    grid = (nv, rp // tr)
+    split_w = vp // splits
+    kp = _pow2_at_least(k_sel)
     f32 = jnp.float32
-    vals, idx, lse = pl.pallas_call(
-        _make_tail_kernel(k_sel, tv, tr),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tr, dw), lambda j, i: (i, 0),
-                         memory_space=pltpu.VMEM),               # x
-            pl.BlockSpec((dw, tv), lambda j, i: (0, j),
-                         memory_space=pltpu.VMEM),               # w
-            pl.BlockSpec((1, tv), lambda j, i: (0, j),
-                         memory_space=pltpu.VMEM),               # bias
-        ],
-        out_specs=(
-            pl.BlockSpec((tr, k_sel), lambda j, i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tr, k_sel), lambda j, i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tr, 1), lambda j, i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(jax.ShapeDtypeStruct((rp, k_sel), f32),
-                   jax.ShapeDtypeStruct((rp, k_sel), jnp.int32),
-                   jax.ShapeDtypeStruct((rp, 1), f32)),
-        scratch_shapes=[
-            pltpu.VMEM((rp, 1), f32),          # running max (all rows)
-            pltpu.VMEM((rp, 1), f32),          # running sumexp
-            pltpu.VMEM((rp, k_sel), f32),      # running top-k values
-            pltpu.VMEM((rp, k_sel), jnp.int32),  # running top-k indices
-        ],
+    vals, idx, m, s = pl.pallas_call(
+        _make_tail_kernel(k_sel, kp, tr, tv, tk, dw, split_w // tv, split_w),
+        grid=(rp // tr, splits),
+        out_shape=(jax.ShapeDtypeStruct((splits, rp, kp), f32),
+                   jax.ShapeDtypeStruct((splits, rp, kp), jnp.int32),
+                   jax.ShapeDtypeStruct((splits, rp), f32),
+                   jax.ShapeDtypeStruct((splits, rp), f32)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=num_stages),
         cost_estimate=pl.CostEstimate(
             flops=2 * rp * dw * vp,
-            bytes_accessed=(nv * rp * dw * x.dtype.itemsize
-                            + dw * vp * w.dtype.itemsize
-                            + rp * (2 * k_sel + 1) * 4),
-            transcendentals=rp * vp,
-        ),
+            bytes_accessed=((rp // tr) * dw * vp * w.dtype.itemsize
+                            + splits * rp * dw * x.dtype.itemsize),
+            transcendentals=rp * vp),
         interpret=interpret,
-    )(x, w, b[None, :])
-    return vals[:rows], idx[:rows], lse[:rows, 0]
+        name="stvd_logit_tail",
+    )(x, w, b)
+    v2, i2, lse = _merge_splits(vals, idx, m, s, k_sel)
+    return v2[:rows], i2[:rows], lse[:rows]
 
 
-def make_logit_tail(w, b, k_sel: int, tv: int = 0, tr_cap: int = 128):
+# Tile shape of the tail (row block, vocab tile, contraction chunk, vocab
+# splits, warps, pipeline stages); see PERF.md for how it was chosen.
+TAIL_TILES = dict(tr=64, tv=64, tk=64, splits=16, num_warps=4,
+                  num_stages=1)
+
+
+def make_logit_tail(w, b, k_sel: int, interpret: bool = False,
+                    **tiles):
     """Build the fused logit-tail closure: activation (rows, dw) ->
     (top-k raw logits, top-k indices, logsumexp per row); top-k
     log-probs are ``vals - lse[:, None]``.
 
-    Called ONCE per decode program (outside the while_loop) so the
-    vocab-padding copy of W is loop-invariant; returns None when the
-    shape doesn't fit the kernel's tiling assumptions (caller keeps the
-    XLA path: materialized logits + lax.top_k).  ``tv``/``tr_cap`` are
-    tuning knobs (vocab tile width / max row tile); defaults are the
-    v5e-tuned choices.
+    Called once per decode program (outside the while_loop) so the
+    vocab-padding copy of W is loop-invariant.  Returns None when the
+    shape does not suit the kernel (caller keeps the XLA path:
+    materialized logits + ``lax.top_k``).  Greedy decoding (``k_sel ==
+    1``) keeps the XLA path too: its log-softmax + argmax was measured
+    faster end to end than the kernel (PERF.md).  ``tiles`` overrides
+    entries of ``TAIL_TILES``.
     """
+    t = dict(TAIL_TILES, **tiles)
     dw, v = w.shape
-    if v < 8 * k_sel or dw % 128 != 0 or k_sel > 8:
+    if not 1 < k_sel <= 8 or dw % t["tk"] or v < t["splits"] * t["tv"]:
         return None
-    tv = tv or _pick_vocab_tile(v)
-    vp = _round_up(v, tv)
+    vp = _round_up(v, t["splits"] * t["tv"])
     b = b.astype(jnp.float32)
     if vp != v:
-        # pad bias with -1e30: padded logits never reach the top-k and
-        # underflow to 0 inside the logsumexp
+        # padded columns: zero weights and a -1e30 bias never reach the
+        # top-k and underflow to 0 inside the logsumexp
         w = jnp.pad(w, ((0, 0), (0, vp - v)))
-        b = jnp.pad(b, (0, vp - v), constant_values=_NEG_INF)
+        b = jnp.pad(b, (0, vp - v), constant_values=_NEG)
 
     def tail(logit_act):
-        interpret = jax.default_backend() != "tpu"
-        return _tail_pallas_call(logit_act, w, b, k_sel, tv, tr_cap,
-                                 interpret)
+        return _tail_call(logit_act.astype(w.dtype), w, b, k_sel,
+                          interpret=interpret, **t)
 
     return tail
 
 
-# ---------------------------------------------------------------------------
-# Fused gates+LSTM decode kernel (model.gates_kernel; VERDICT r3 #2/#3).
-#
-# The decode step's combined LSTM matmul [emb|h|ctx_t] @ [W;U;Wc] is its
-# single largest island (bf16 1.52 ms corrected vs a 1.43 ms MXU floor;
-# int8 0.81 vs 0.72 — XLA delivers ~273 of 394 int8 TOPS at the
-# (1920, 5120, 14336) reference shape, BASELINE.md round-2 "Decode
-# roofline, corrected"), and the sigmoid/tanh/c/h pointwise downstream
-# of it is separate XLA fusion glue.  This kernel computes matmul +
-# dequant + bias + all four gate nonlinearities + the c/h state update
-# in ONE pass:
-#   * the (rows, 4*dim) preactivation never exists in HBM,
-#   * the weight stack streams from HBM exactly once per step
-#     (dim-strip-outer grid; the full-rows accumulator lives in VMEM
-#     scratch, sliced per row tile — the logit-tail kernel's pattern),
-#   * weights are gate-INTERLEAVED per dim strip (step.py:
-#     _gates_kernel_operands), so each strip carries the i/f/o/g
-#     columns its epilogue needs,
-#   * W8A8 (decode_quant='int8') shares the jnp path's exact
-#     quantization grid — parity is bit-tight, not approximate.
-# Decode only (the backward never runs through it).  Reference
-# semantics: the LSTM preactivation/gate order of
-# ``model_attention.py:§lstm_cond_layer`` (SURVEY.md §3.2).
-# ---------------------------------------------------------------------------
+def make_tail_step(interpret: bool = False):
+    """The decoder step (``step.step``, all XLA) carrying the fused logit
+    tail; the decode loops pick the tail up off the step function."""
+    def step_tail(params, cfg, state, sc, emb_t, x_pre=None):
+        return step_mod.step(params, cfg, state, sc, emb_t, x_pre)
+
+    step_tail.make_logit_tail = functools.partial(make_logit_tail,
+                                                  interpret=interpret)
+    return step_tail
 
 
-def _make_gates_kernel(quant: bool, nk: int, tm: int, tnd: int):
-    acc_neutral = 0 if quant else 0.0
-
-    def kernel(x_ref, w_ref, scale_ref, bias_ref, rscale_ref, c_ref,
-               h_ref, c_out_ref, acc_scr):
-        kt = pl.program_id(1)
-        m = pl.program_id(2)
-        sl = pl.ds(m * tm, tm)
-        tk = x_ref.shape[1]
-
-        w = w_ref[:, 0].reshape(tk, 4 * tnd)
-        if quant:
-            part = jnp.dot(x_ref[:], w,
-                           preferred_element_type=jnp.int32)
-        else:
-            part = jnp.dot(x_ref[:], w,
-                           preferred_element_type=jnp.float32)
-        acc = jnp.where(kt == 0, acc_neutral, acc_scr[sl, :]) + part
-        acc_scr[sl, :] = acc
-
-        @pl.when(kt == nk - 1)
-        def _():
-            accf = acc.astype(jnp.float32)
-            if quant:
-                col = scale_ref[0].reshape(1, 4 * tnd)
-                accf = accf * (rscale_ref[:] * col)
-            pre = accf + bias_ref[0].reshape(1, 4 * tnd)
-            i_g = jax.nn.sigmoid(pre[:, 0 * tnd: 1 * tnd])
-            f_g = jax.nn.sigmoid(pre[:, 1 * tnd: 2 * tnd])
-            o_g = jax.nn.sigmoid(pre[:, 2 * tnd: 3 * tnd])
-            g_g = jnp.tanh(pre[:, 3 * tnd: 4 * tnd])
-            # c/h ride as (Mp, Tn, 1, TNd): the singleton second-to-
-            # last dim satisfies Mosaic's block-tiling rule (a 3-D
-            # (Mp, 1, TNd) strip block fails to lower — battery r4b)
-            c_new = f_g * c_ref[sl, 0, 0, :] + i_g * g_g
-            h_ref[sl, 0, 0, :] = o_g * jnp.tanh(c_new)
-            c_out_ref[sl, 0, 0, :] = c_new
-
-    return kernel
+step_tail = make_tail_step()
 
 
-_GK_TM = 128
+def get_step_fn(use_kernel=None):
+    """Step-function selector.  ``None`` (the default everywhere) picks
+    the fused logit tail on the GPU and the plain XLA step elsewhere;
+    True asks for the compiled kernel (lowering it for anything but the
+    GPU raises); False is the plain XLA step.
 
-
-def _gates_vmem_ok(mp: int, tk: int, tnd: int, wb: int, xb: int) -> bool:
-    """Working-set estimate vs the ~16 MB Mosaic budget: double-buffered
-    w/x tiles + the full-rows accumulator scratch + three resident
-    column strips (c_prev, h_out, c_out)."""
-    est = (2 * tk * 4 * tnd * wb + 2 * _GK_TM * tk * xb
-           + mp * 4 * tnd * 4 + 3 * mp * tnd * 4)
-    return est <= int(15.3 * 2 ** 20)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("quant", "tk", "interpret"))
-def _gates_pallas_call(x, w, scale, bias, rscale, c_prev,
-                       quant: bool, tk: int, interpret: bool):
-    mp, kp = x.shape
-    tn, tnd = w.shape[1], w.shape[3]
-    nk = kp // tk
-    tm = _GK_TM
-    grid = (tn, nk, mp // tm)
-    f32 = jnp.float32
-    h, c = pl.pallas_call(
-        _make_gates_kernel(quant, nk, tm, tnd),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tk), lambda n, kt, m: (m, kt),
-                         memory_space=pltpu.VMEM),              # x
-            pl.BlockSpec((tk, 1, 4, tnd), lambda n, kt, m: (kt, n, 0, 0),
-                         memory_space=pltpu.VMEM),              # w
-            pl.BlockSpec((1, 4, tnd), lambda n, kt, m: (n, 0, 0),
-                         memory_space=pltpu.VMEM),              # col scale
-            pl.BlockSpec((1, 4, tnd), lambda n, kt, m: (n, 0, 0),
-                         memory_space=pltpu.VMEM),              # bias
-            pl.BlockSpec((tm, 1), lambda n, kt, m: (m, 0),
-                         memory_space=pltpu.VMEM),              # row scale
-            pl.BlockSpec((mp, 1, 1, tnd), lambda n, kt, m: (0, n, 0, 0),
-                         memory_space=pltpu.VMEM),              # c_prev
-        ],
-        out_specs=(
-            pl.BlockSpec((mp, 1, 1, tnd), lambda n, kt, m: (0, n, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((mp, 1, 1, tnd), lambda n, kt, m: (0, n, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(jax.ShapeDtypeStruct((mp, tn, 1, tnd), f32),
-                   jax.ShapeDtypeStruct((mp, tn, 1, tnd), f32)),
-        scratch_shapes=[
-            pltpu.VMEM((mp, 4 * tnd), jnp.int32 if quant else f32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * kp * 4 * tnd * tn,
-            bytes_accessed=(kp * tn * 4 * tnd * w.dtype.itemsize
-                            + tn * mp * kp * x.dtype.itemsize
-                            + 3 * mp * tn * tnd * 4),
-            transcendentals=5 * mp * tn * tnd,
-        ),
-        interpret=interpret,
-    )(x, w, scale, bias, rscale, c_prev)
-    return h.reshape(mp, tn * tnd), c.reshape(mp, tn * tnd)
-
-
-# the scale/bias (1, 4, tnd) and w (tk, 1, 4, tnd) blocks pass the rule
-# because their last-two dims EQUAL the array dims (4, tnd)
-
-
-def gates_lstm_pallas(emb_t, h, ctx_t, c, sc, cfg: ModelConfig):
-    """Fused gates+LSTM step core: (h_t, c_t) from the attention's
-    ``ctx_t`` plus the carried state, or None to decline (caller keeps
-    the XLA path).  Drop-in for step_with_core's ``gates_core`` hook —
-    exact-parity contract with the jnp gates branch (same quantization
-    grid, same fp32 pointwise math) pinned in tests/test_kernel.py."""
-    lay = step_mod.gates_kernel_layout(cfg)
-    if lay is None or sc.gk_w is None:
-        return None
-    if cfg.gates_kernel == "auto" and jax.default_backend() != "tpu":
-        return None                  # interpret mode is for tests only
-    dwp, kp, tn, tnd = lay
-    quant = sc.gk_scale is not None
-    rows = h.shape[0]
-    mp = -(-rows // _GK_TM) * _GK_TM
-    tk = next((t for t in (512, 256, 128) if kp % t == 0), None)
-    if tk is None or not _gates_vmem_ok(
-            mp, tk, tnd, sc.gk_w.dtype.itemsize,
-            1 if quant else jnp.dtype(cfg.compute_dtype).itemsize):
-        return None
-
-    cdtype = jnp.dtype(cfg.compute_dtype)
-    dw0 = cfg.dim_word
-    pad_cols = jnp.zeros((rows, dwp - dw0), cdtype)
-    x_cat = jnp.concatenate(
-        [emb_t.astype(cdtype), pad_cols, h.astype(cdtype),
-         ctx_t.astype(cdtype)], axis=1)                   # (rows, Kp)
-    if quant:
-        # the jnp int8 branch's exact dynamic-quant math (zero pad
-        # columns cannot change the row max)
-        x32 = x_cat.astype(jnp.float32)
-        s_r = jnp.maximum(jnp.max(jnp.abs(x32), axis=1,
-                                  keepdims=True), 1e-8) / 127.0
-        x_k = jnp.clip(jnp.round(x32 / s_r), -127, 127).astype(jnp.int8)
-        scale = sc.gk_scale
-    else:
-        s_r = jnp.ones((rows, 1), jnp.float32)
-        x_k = x_cat
-        scale = jnp.ones((tn, 4, tnd), jnp.float32)   # unused in kernel
-    c32 = c.astype(jnp.float32)
-    if mp != rows:
-        x_k = jnp.pad(x_k, ((0, mp - rows), (0, 0)))
-        s_r = jnp.pad(s_r, ((0, mp - rows), (0, 0)),
-                      constant_values=1.0)
-        c32 = jnp.pad(c32, ((0, mp - rows), (0, 0)))
-    interpret = jax.default_backend() != "tpu"
-    h_t, c_t = _gates_pallas_call(
-        x_k, sc.gk_w, scale, sc.gk_bias, s_r,
-        c32.reshape(mp, tn, 1, tnd), quant, tk, interpret)
-    return h_t[:rows], c_t[:rows]
-
-
-# ---------------------------------------------------------------------------
-# Fused TRAIN-scan tail (model.train_tail_kernel; VERDICT r3 Next #3).
-#
-# The teacher-forced forward scan body (seqgrad._fwd) ends in
-#     preact = x_pre_t + h_gates + ctx_t @ Wc ;  i,f,o,g -> c_t, h_t
-# — one (B, ctx)x(ctx, 4d) matmul plus ~6 dependent elementwise
-# fusions.  BASELINE.md's forward decomposition attributes the scan's
-# 1.8x-over-streaming gap to per-fusion dependency latency that batch
-# size amortizes but depth cannot; this kernel collapses the whole tail
-# into ONE launch per step.  The backward is untouched: the kernel
-# emits the exact same residuals (h, c, preact) the hand-derived
-# sequence VJP consumes, so gradient parity is automatic.
-# Per-gate dots (no in-kernel reshape of the weight block): each
-# program computes one (TM, ctx)@(ctx, TNd) dot per gate for its dim
-# strip — Wc is consumed through a free (ctx, 4, dim) view, no weight
-# reorder or copy exists anywhere.
-# ---------------------------------------------------------------------------
-
-
-def _make_train_tail_kernel(tnd: int):
-    def kernel(x_ref, w_ref, xp_ref, hg_ref, c_ref,
-               h_ref, c_out_ref, pre_ref):
-        x = x_ref[:]
-        # addition order matches the jnp tail exactly:
-        # (x_pre + h_gates) + dot — keeps residuals bit-comparable
-        pre = [xp_ref[:, g, :] + hg_ref[:, g, :]
-               + jnp.dot(x, w_ref[:, g, :],
-                         preferred_element_type=jnp.float32)
-               for g in range(4)]
-        for g in range(4):
-            pre_ref[:, g, :] = pre[g]
-        i_g = jax.nn.sigmoid(pre[0])
-        f_g = jax.nn.sigmoid(pre[1])
-        o_g = jax.nn.sigmoid(pre[2])
-        g_g = jnp.tanh(pre[3])
-        c_new = f_g * c_ref[:] + i_g * g_g
-        h_ref[:] = o_g * jnp.tanh(c_new)
-        c_out_ref[:] = c_new
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _train_tail_pallas_call(x, w4, x_pre, h_gates, c_prev,
-                            interpret: bool):
-    mp, dc = x.shape
-    dim = w4.shape[2]
-    tnd = 128
-    tn = dim // tnd
-    f32 = jnp.float32
-    grid = (tn,)
-    h, c, pre = pl.pallas_call(
-        _make_train_tail_kernel(tnd),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((mp, dc), lambda n: (0, 0),
-                         memory_space=pltpu.VMEM),              # ctx_t
-            pl.BlockSpec((dc, 4, tnd), lambda n: (0, 0, n),
-                         memory_space=pltpu.VMEM),              # Wc view
-            pl.BlockSpec((mp, 4, tnd), lambda n: (0, 0, n),
-                         memory_space=pltpu.VMEM),              # x_pre_t
-            pl.BlockSpec((mp, 4, tnd), lambda n: (0, 0, n),
-                         memory_space=pltpu.VMEM),              # h_gates
-            pl.BlockSpec((mp, tnd), lambda n: (0, n),
-                         memory_space=pltpu.VMEM),              # c_prev
-        ],
-        out_specs=(
-            pl.BlockSpec((mp, tnd), lambda n: (0, n),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((mp, tnd), lambda n: (0, n),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((mp, 4, tnd), lambda n: (0, 0, n),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(jax.ShapeDtypeStruct((mp, dim), f32),
-                   jax.ShapeDtypeStruct((mp, dim), f32),
-                   jax.ShapeDtypeStruct((mp, 4, dim), f32)),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * dc * 4 * dim,
-            bytes_accessed=(dc * 4 * dim * w4.dtype.itemsize
-                            + mp * (dc * x.dtype.itemsize
-                                    + 4 * dim * 4 * 3 + dim * 4 * 3)),
-            transcendentals=5 * mp * dim,
-        ),
-        interpret=interpret,
-    )(x, w4, x_pre, h_gates, c_prev)
-    return h, c, pre
-
-
-def train_tail_pallas(ctx_t, x_pre_t, h_gates, c_prev, wc, cd: str):
-    """Fused scan-tail for seqgrad._fwd: (h_t, c_t, preact) — exact
-    residual contract with the inline jnp tail — or None to decline
-    (caller keeps the XLA path).  ``wc`` is the raw (ctx, 4*dim) weight;
-    consumed through a free (ctx, 4, dim) view."""
-    dc, d4 = wc.shape
-    dim = d4 // 4
-    rows = ctx_t.shape[0]
-    if dim % 128 or dc % 128:
-        return None
-    mp = -(-rows // 8) * 8
-    # the whole x/addend working set rides per program: keep it modest
-    est = (dc * 4 * 128 * wc.dtype.itemsize * 2
-           + mp * (dc * 4 + 4 * 128 * 4 * 2 * 2 + 128 * 4 * 3))
-    if est > int(15.3 * 2 ** 20):
-        return None
-    cdtype = jnp.dtype(cd)
-    x = ctx_t.astype(cdtype)
-    xp = x_pre_t.astype(jnp.float32).reshape(rows, 4, dim)
-    hg = h_gates.astype(jnp.float32).reshape(rows, 4, dim)
-    c32 = c_prev.astype(jnp.float32)
-    if mp != rows:
-        x = jnp.pad(x, ((0, mp - rows), (0, 0)))
-        xp = jnp.pad(xp, ((0, mp - rows), (0, 0), (0, 0)))
-        hg = jnp.pad(hg, ((0, mp - rows), (0, 0), (0, 0)))
-        c32 = jnp.pad(c32, ((0, mp - rows), (0, 0)))
-    interpret = jax.default_backend() != "tpu"
-    h, c, pre = _train_tail_pallas_call(
-        x, wc.astype(cdtype).reshape(dc, 4, dim), xp, hg, c32, interpret)
-    return (h[:rows], c[:rows], pre[:rows].reshape(rows, 4 * dim))
-
-
-def step_pallas(params, cfg: ModelConfig, state, sc, emb_t, x_pre=None):
-    """Decoder step using the fused Pallas TEMPORAL attention core +
-    logit tail (drop-in for ``step.step``, used by train scan AND
-    decode).  The spatial stage stays on XLA's fusion — measured
-    1.5-2.4x faster than the Pallas spatial kernel at every TPU shape
-    (see spatial_core_pallas docstring).  The fused gates+LSTM kernel
-    engages when ``cfg.gates_kernel`` enables it (precompute builds its
-    operands; ``gates_lstm_pallas`` declines incompatible shapes)."""
-    return step_mod.step_with_core(params, cfg, state, sc, emb_t, x_pre,
-                                   attention_core=attention_core_pallas,
-                                   gates_core=gates_lstm_pallas)
-
-
-def step_pallas_spatial(params, cfg: ModelConfig, state, sc, emb_t,
-                        x_pre=None):
-    """Fully-fused variant: Pallas temporal AND spatial cores (for
-    verification / future retuning; slower than step_pallas on v5e)."""
-    return step_mod.step_with_core(params, cfg, state, sc, emb_t, x_pre,
-                                   attention_core=attention_core_pallas,
-                                   spatial_core=spatial_core_pallas,
-                                   gates_core=gates_lstm_pallas)
-
-
-# decode loops pick the fused logit tail up from the step function (the
-# oracle step carries none, so the jnp path stays byte-identical)
-step_pallas.make_logit_tail = make_logit_tail
-step_pallas_spatial.make_logit_tail = make_logit_tail
-
-
-def get_step_fn(use_pallas=None):
-    """Step-function selector.  ``None`` (the CLI default) = auto:
-    fused Pallas kernels on TPU (measured +27% beam decode at reference
-    scale), the XLA-fused jnp oracle elsewhere (the kernels only run in
-    slow interpret mode off-TPU).
-
-    Teacher-forced TRAINING with ``cfg.fused_seq_grad`` (the default)
-    does not route through the returned step_fn at all — the
-    hand-derived sequence VJP (model/seqgrad.py) supersedes it there;
-    see decoder.forward_train's precedence note."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    return step_pallas if use_pallas else step_mod.step
+    Teacher-forced training with ``cfg.fused_seq_grad`` (the default)
+    does not route through the returned step at all — the hand-derived
+    sequence VJP (model/seqgrad.py) supersedes it there."""
+    if use_kernel is None:
+        use_kernel = jax.default_backend() == "gpu"
+    return step_tail if use_kernel else step_mod.step

@@ -1,20 +1,18 @@
 """Hand-derived sequence VJP for the teacher-forced train scan.
 
-WHY THIS EXISTS (measured on v5e-1 at reference scale, batch 64):
-JAX's automatic transpose of ``lax.scan`` accumulates the cotangent of
-every loop-invariant weight in a full-precision carry that is read and
-written EVERY backward step.  For the concatenated h-projection weights
-(dim, 4*dim+attn+1) that carry is an f32[3584, 15361] = 220 MB tensor;
-its accumulation fusion alone profiled at 7.5 ms of the 40 ms train
-step, and raising ``scan_unroll`` to 30 only recovered ~1 step/s.
+WHY THIS EXISTS (reference scale, batch 64): JAX's automatic transpose
+of ``lax.scan`` accumulates the cotangent of every loop-invariant weight
+in a full-precision carry that is read and written EVERY backward step.
+For the concatenated h-projection weights (dim, 4*dim+attn+1) that
+carry is an f32[3584, 15361] = 220 MB tensor.
 
 This module replaces autodiff for the whole sequence with the classic
 RNN-training identity (the same restructuring cuDNN uses): the backward
 scan computes ONLY the per-step preactivation cotangents ``dhp_t`` and
 stacks them; the weight gradients then fall out as two post-scan GEMMs
 
-    d[U|Wd_att|W_sel] = h_prev_stack^T @ dhp_stack        (one MXU pass)
-    dWc               = ctx_t_stack^T  @ dpre_stack       (one MXU pass)
+    d[U|Wd_att|W_sel] = h_prev_stack^T @ dhp_stack        (one GEMM)
+    dWc               = ctx_t_stack^T  @ dpre_stack       (one GEMM)
 
 so the 220 MB accumulator never exists — the stacked (T*B, 15361)
 cotangent is written once and read once.
@@ -35,9 +33,9 @@ SPATIAL PATH (config 2) — why it gets its own hand VJP: at reference
 scale (B=64, K=28, R=49, s=Dr=1024) autodiff's scan transpose carries
 fp32 cotangent accumulators for the loop-invariant ``pregion`` AND
 ``regions`` — 360 MB EACH, read+written every backward step (~43 GB of
-HBM traffic per train step just for those two), plus the 235 MB
-``hw``-class accumulator, plus remat's full forward recompute.  That is
-the measured 6.0 steps/s of runs/msvd_r2_long.  The hand VJP keeps ONE
+device-memory traffic per train step just for those two), plus the
+235 MB ``hw``-class accumulator, plus remat's full forward recompute.
+The hand VJP keeps ONE
 big accumulator (``Σ_t dpe_s``, the pregion cotangent — irreducible:
 every step touches all of it, and flushing it per-step as a GEMM would
 cost 184 GFLOP/step), carries it in ``wgrad_dtype``, rebuilds the
@@ -57,8 +55,8 @@ import jax.numpy as jnp
 
 from .step import _attention_core_jnp, _dot, masked_softmax
 
-# (dim, attn, selector, unroll, cd, use_attn_kernel[, use_tail_kernel])
-Static = Tuple[int, int, bool, int, str, bool, bool]
+# (dim, attn, selector, unroll, compute_dtype)
+Static = Tuple[int, int, bool, int, str]
 
 
 def _gates(preact, dim):
@@ -84,20 +82,8 @@ def fused_sequence(static: Static, hw, wc, u_att, c_att, b_sel, ctx, pctx,
 
 def _fwd(static, hw, wc, u_att, c_att, b_sel, ctx, pctx, ctx_mask, h0, c0,
          x_pre_all):
-    dim, attn, selector, unroll, cd, use_attn_kernel = static[:6]
-    use_tail_kernel = static[6] if len(static) > 6 else False
+    dim, attn, selector, unroll, cd = static
     cdtype = jnp.dtype(cd)
-    if use_attn_kernel:
-        # Pallas temporal-attention core (tanh-score + masked softmax +
-        # ctx reduce + selector in ONE kernel) — same contract as the
-        # inline jnp block (`step._attention_core_jnp`); chosen because
-        # the forward scan's cost over its streaming floor is per-fusion
-        # dependency latency (cfg.train_fwd_kernel, BASELINE.md).  The
-        # backward is untouched: it recomputes e from pctx + h_att.
-        from . import kernel as kernel_mod
-        attention_core = kernel_mod.attention_core_pallas
-    else:
-        attention_core = _attention_core_jnp
 
     def body(carry, x_pre_t):
         h, c = carry
@@ -105,23 +91,13 @@ def _fwd(static, hw, wc, u_att, c_att, b_sel, ctx, pctx, ctx_mask, h0, c0,
         h_gates = hp[:, : 4 * dim]
         h_att = hp[:, 4 * dim: 4 * dim + attn]
         blogit = hp[:, 4 * dim + attn]
-        ctx_t, alpha = attention_core(h_att, blogit, pctx, ctx, ctx_mask,
-                                      u_att, c_att, b_sel, selector)
-        out = None
-        if use_tail_kernel:
-            # fused Wc-matmul + adds + LSTM pointwise in ONE launch
-            # (cfg.train_tail_kernel — the whole-step-tail experiment);
-            # residual contract identical, backward untouched
-            from . import kernel as kernel_mod
-            out = kernel_mod.train_tail_pallas(ctx_t, x_pre_t, h_gates,
-                                               c, wc, cd)
-        if out is not None:
-            h_t, c_t, preact = out
-        else:
-            preact = x_pre_t + h_gates + _dot(ctx_t, wc, cdtype)
-            i, f, o, g = _gates(preact, dim)
-            c_t = f * c + i * g
-            h_t = o * jnp.tanh(c_t)
+        ctx_t, alpha = _attention_core_jnp(h_att, blogit, pctx, ctx,
+                                           ctx_mask, u_att, c_att, b_sel,
+                                           selector)
+        preact = x_pre_t + h_gates + _dot(ctx_t, wc, cdtype)
+        i, f, o, g = _gates(preact, dim)
+        c_t = f * c + i * g
+        h_t = o * jnp.tanh(c_t)
         return ((h_t, c_t),
                 (h_t, c_t, ctx_t, alpha, preact, h_att, blogit))
 
@@ -133,7 +109,7 @@ def _fwd(static, hw, wc, u_att, c_att, b_sel, ctx, pctx, ctx_mask, h0, c0,
 
 
 def _bwd(static, res, g):
-    dim, attn, selector, unroll, cd = static[:5]
+    dim, attn, selector, unroll, cd = static
     cdtype = jnp.dtype(cd)
     (hw, wc, u_att, c_att, b_sel, ctx, pctx, ctx_mask, h0, c0,
      hs, cs, ctxs, alphas, preacts, h_atts, blogits) = res
@@ -241,9 +217,8 @@ fused_sequence.defvjp(_fwd, _bwd)
 # Spatial path (config 2): region attention inside the scan
 # ---------------------------------------------------------------------------
 
-# (dim, attn, s_attn, selector, unroll, compute_dtype, acc_dtype,
-#  use_bwd_kernel, use_attn_kernel)
-SpatialStatic = Tuple[int, int, int, bool, int, str, str, bool, bool]
+# (dim, attn, s_attn, selector, unroll, compute_dtype, acc_dtype)
+SpatialStatic = Tuple[int, int, int, bool, int, str, str]
 
 
 def _spatial_step_fwd(h_satt, h_att, pregion_c, regions_c, ctx,
@@ -258,13 +233,13 @@ def _spatial_step_fwd(h_satt, h_att, pregion_c, regions_c, ctx,
     Returns (alpha_s, spat, ctx_k, pctx_k, e, alpha, ctx_t_raw).
     """
     e_s = jnp.tanh(pregion_c + h_satt.astype(cdtype)[:, None, None, :])
-    ss = jnp.einsum("bkrd,d->bkr", e_s, u_s.astype(cdtype)) + c_s
+    ss = jnp.sum(e_s * u_s.astype(cdtype), axis=-1, dtype=jnp.float32) + c_s
     alpha_s = masked_softmax(ss.astype(jnp.float32), None, axis=-1)
     spat = jnp.einsum("bkr,bkrd->bkd", alpha_s.astype(cdtype), regions_c)
     ctx_k = ctx + _dot(spat, w_sf, cdtype)            # (B, K, Dc) f32
     pctx_k = pctx + _dot(spat, w_sfa, cdtype)         # (B, K, A)  f32
     e = jnp.tanh(pctx_k + h_att[:, None, :])
-    scores = jnp.einsum("bkd,d->bk", e, u32) + c_att
+    scores = jnp.sum(e * u32, axis=-1) + c_att
     alpha = masked_softmax(scores.astype(jnp.float32), ctx_mask, axis=-1)
     ctx_t = jnp.einsum("bk,bkd->bd", alpha.astype(ctx_k.dtype), ctx_k)
     return alpha_s, spat, ctx_k, pctx_k, e, alpha, ctx_t.astype(jnp.float32)
@@ -295,15 +270,10 @@ def _fwd_spatial(static, hw, wc, u_att, c_att, b_sel, u_s, c_s, w_sf,
                  w_sfa, ctx, pctx, pregion, regions, ctx_mask, h0, c0,
                  x_pre_all):
     dim, attn, s_attn, selector, unroll, cd = static[:6]
-    use_attn_kernel = static[8] if len(static) > 8 else False
-    use_tail_kernel = static[9] if len(static) > 9 else False
     cdtype = jnp.dtype(cd)
     u32 = u_att.astype(pctx.dtype)
     pregion_c = pregion.astype(cdtype)
     regions_c = regions.astype(cdtype)
-    # imported at FUNCTION scope: body's branches reference kernel_mod
-    # (a local import inside body would shadow it per-branch)
-    from . import kernel as kernel_mod
 
     def body(carry, x_pre_t):
         h, c = carry
@@ -312,41 +282,16 @@ def _fwd_spatial(static, hw, wc, u_att, c_att, b_sel, u_s, c_s, w_sf,
         h_att = hp[:, 4 * dim: 4 * dim + attn]
         blogit = hp[:, 4 * dim + attn]
         h_satt = hp[:, 4 * dim + attn + 1:]
-        if use_attn_kernel:
-            # region stage verbatim from _spatial_step_fwd, then the
-            # Pallas temporal core over the per-step ctx_k/pctx_k
-            # (selector applied inside the core, same saved ys)
-            e_s = jnp.tanh(pregion_c
-                           + h_satt.astype(cdtype)[:, None, None, :])
-            ss = jnp.einsum("bkrd,d->bkr", e_s,
-                            u_s.astype(cdtype)) + c_s
-            alpha_s = masked_softmax(ss.astype(jnp.float32), None,
-                                     axis=-1)
-            spat = jnp.einsum("bkr,bkrd->bkd", alpha_s.astype(cdtype),
-                              regions_c)
-            ctx_k = ctx + _dot(spat, w_sf, cdtype)
-            pctx_k = pctx + _dot(spat, w_sfa, cdtype)
-            ctx_t, alpha = kernel_mod.attention_core_pallas(
-                h_att, blogit, pctx_k, ctx_k, ctx_mask, u_att, c_att,
-                b_sel, selector)
-        else:
-            alpha_s, _, _, _, _, alpha, ctx_t = _spatial_step_fwd(
-                h_satt, h_att, pregion_c, regions_c, ctx, pctx,
-                ctx_mask, u_s, c_s, w_sf, w_sfa, u32, c_att, cdtype)
-            if selector:
-                beta = jax.nn.sigmoid(blogit.astype(jnp.float32) + b_sel)
-                ctx_t = ctx_t * beta[:, None]
-        out = None
-        if use_tail_kernel:
-            out = kernel_mod.train_tail_pallas(ctx_t, x_pre_t, h_gates,
-                                               c, wc, cd)
-        if out is not None:
-            h_t, c_t, preact = out
-        else:
-            preact = x_pre_t + h_gates + _dot(ctx_t, wc, cdtype)
-            i, f, o, g = _gates(preact, dim)
-            c_t = f * c + i * g
-            h_t = o * jnp.tanh(c_t)
+        alpha_s, _, _, _, _, alpha, ctx_t = _spatial_step_fwd(
+            h_satt, h_att, pregion_c, regions_c, ctx, pctx,
+            ctx_mask, u_s, c_s, w_sf, w_sfa, u32, c_att, cdtype)
+        if selector:
+            beta = jax.nn.sigmoid(blogit.astype(jnp.float32) + b_sel)
+            ctx_t = ctx_t * beta[:, None]
+        preact = x_pre_t + h_gates + _dot(ctx_t, wc, cdtype)
+        i, f, o, g = _gates(preact, dim)
+        c_t = f * c + i * g
+        h_t = o * jnp.tanh(c_t)
         return ((h_t, c_t),
                 (h_t, c_t, ctx_t, alpha, preact, h_att, blogit, h_satt,
                  alpha_s))
@@ -361,8 +306,7 @@ def _fwd_spatial(static, hw, wc, u_att, c_att, b_sel, u_s, c_s, w_sf,
 
 
 def _bwd_spatial(static, res, g):
-    (dim, attn, s_attn, selector, unroll, cd, acc_dt,
-     use_kernel) = static[:8]
+    dim, attn, s_attn, selector, unroll, cd, acc_dt = static
     cdtype = jnp.dtype(cd)
     adtype = jnp.dtype(acc_dt)
     (hw, wc, u_att, c_att, b_sel, u_s, c_s, w_sf, w_sfa, ctx, pctx,
@@ -371,19 +315,7 @@ def _bwd_spatial(static, res, g):
      alpha_ss) = res
     dhs, dctxs, dalphas = g
     T, B = hs.shape[0], hs.shape[1]
-    K, R = regions.shape[1], regions.shape[2]
-
-    if use_kernel:
-        # fused Pallas backward-spatial step (kernel.spatial_bwd_pallas):
-        # e_s recompute + softmax backward + Dpe in-place accumulate in
-        # one VMEM pass, plus the next step's spat from the regions
-        # block already resident.  Falls back to the jnp path when no
-        # tiling fits VMEM.
-        from . import kernel as kernel_mod
-        if kernel_mod._pick_spatial_bwd_tile(
-                B, K, R, pregion.shape[3], regions.shape[3],
-                cdtype.itemsize, adtype.itemsize) is None:
-            use_kernel = False
+    K = regions.shape[1]
 
     h_prev = jnp.concatenate([h0[None], hs[:-1]], axis=0)
     c_prev = jnp.concatenate([c0[None], cs[:-1]], axis=0)
@@ -398,23 +330,16 @@ def _bwd_spatial(static, res, g):
     regions_c = regions.astype(cdtype)
 
     def body(carry, xs):
-        if use_kernel:
-            (dh, dc, du_att, dc_att, db_sel, du_s, dc_s, dpctx, dctx,
-             dpe_s_acc, dw_sf, dw_sfa, spat) = carry
-            (hp_t, cp_t, c_t, ctx_t, alpha, preact, h_att, blogit, h_satt,
-             alpha_s, alpha_prev, dh_out, dctx_out, dalpha_out) = xs
-        else:
-            (dh, dc, du_att, dc_att, db_sel, du_s, dc_s, dpctx, dctx,
-             dpe_s_acc, dw_sf, dw_sfa) = carry
-            (hp_t, cp_t, c_t, ctx_t, alpha, preact, h_att, blogit, h_satt,
-             alpha_s, dh_out, dctx_out, dalpha_out) = xs
+        (dh, dc, du_att, dc_att, db_sel, du_s, dc_s, dpctx, dctx,
+         dpe_s_acc, dw_sf, dw_sfa) = carry
+        (hp_t, cp_t, c_t, ctx_t, alpha, preact, h_att, blogit, h_satt,
+         alpha_s, dh_out, dctx_out, dalpha_out) = xs
 
-            # ---- recompute the step's big intermediates (cheaper than
-            # saving them: e_s alone is (B,K,R,s) = 360 MB/step) ----
-            e_s = jnp.tanh(pregion_c
-                           + h_satt.astype(cdtype)[:, None, None, :])
-            spat = jnp.einsum("bkr,bkrd->bkd", alpha_s.astype(cdtype),
-                              regions_c)
+        # ---- recompute the step's big intermediates (cheaper than
+        # saving them: e_s alone is (B,K,R,s) = 360 MB/step) ----
+        e_s = jnp.tanh(pregion_c + h_satt.astype(cdtype)[:, None, None, :])
+        spat = jnp.einsum("bkr,bkrd->bkd", alpha_s.astype(cdtype),
+                          regions_c)
         ctx_k = ctx + _dot(spat, w_sf, cdtype)
         pctx_k = pctx + _dot(spat, w_sfa, cdtype)
         e = jnp.tanh(pctx_k + h_att[:, None, :])
@@ -478,28 +403,17 @@ def _bwd_spatial(static, res, g):
                  ).reshape(B, K, -1)                         # (B,K,Dr) f32
 
         # ---- spatial attention backward ----
-        if use_kernel:
-            dpe_s_acc, dh_satt, du_c, dss, spat_prev = \
-                kernel_mod.spatial_bwd_pallas(
-                    h_satt, pregion_c, regions_c, alpha_s, alpha_prev,
-                    dspat, u_s, dpe_s_acc, cd)
-            du_s = du_s + du_c
-            dc_s = dc_s + jnp.sum(dss)
-        else:
-            dalpha_s = jnp.einsum("bkd,bkrd->bkr", dspat.astype(cdtype),
-                                  regions_c,
-                                  preferred_element_type=jnp.float32)
-            dss = alpha_s * (dalpha_s - jnp.sum(alpha_s * dalpha_s,
-                                                axis=-1,
-                                                keepdims=True))  # (B,K,R)
-            dc_s = dc_s + jnp.sum(dss)
-            du_s = du_s + jnp.einsum("bkr,bkrd->d", dss.astype(cdtype),
-                                     e_s,
-                                     preferred_element_type=jnp.float32)
-            dpe_s = ((dss[:, :, :, None].astype(cdtype) * u_s_c)
-                     * (1.0 - e_s * e_s))                  # (B,K,R,s) cd
-            dpe_s_acc = dpe_s_acc + dpe_s.astype(adtype)
-            dh_satt = jnp.sum(dpe_s, axis=(1, 2)).astype(jnp.float32)
+        dalpha_s = jnp.einsum("bkd,bkrd->bkr", dspat.astype(cdtype),
+                              regions_c, preferred_element_type=jnp.float32)
+        dss = alpha_s * (dalpha_s - jnp.sum(alpha_s * dalpha_s, axis=-1,
+                                            keepdims=True))  # (B,K,R)
+        dc_s = dc_s + jnp.sum(dss)
+        du_s = du_s + jnp.einsum("bkr,bkrd->d", dss.astype(cdtype), e_s,
+                                 preferred_element_type=jnp.float32)
+        dpe_s = ((dss[:, :, :, None].astype(cdtype) * u_s_c)
+                 * (1.0 - e_s * e_s))                  # (B,K,R,s) cd
+        dpe_s_acc = dpe_s_acc + dpe_s.astype(adtype)
+        dh_satt = jnp.sum(dpe_s, axis=(1, 2)).astype(jnp.float32)
 
         # ---- h-projection backward ----
         dhp = jnp.concatenate(
@@ -509,8 +423,6 @@ def _bwd_spatial(static, res, g):
                           preferred_element_type=jnp.float32)
         new_carry = (dh_prev, dc_prev, du_att, dc_att, db_sel, du_s, dc_s,
                      dpctx, dctx, dpe_s_acc, dw_sf, dw_sfa)
-        if use_kernel:
-            new_carry = new_carry + (spat_prev,)
         return new_carry, (dhp, dspat.astype(cdtype))
 
     carry0 = (jnp.zeros_like(h0), jnp.zeros_like(c0),
@@ -524,20 +436,10 @@ def _bwd_spatial(static, res, g):
               jnp.zeros(w_sfa.shape, jnp.float32))
     xs = (h_prev, c_prev, cs, ctxs, alphas, preacts, h_atts, blogits,
           h_satts, alpha_ss, dhs, dctxs, dalphas)
-    if use_kernel:
-        # spat for the first (t = T-1) backward step; later steps get it
-        # from the kernel's in-VMEM recompute at t+1
-        spat_init = jnp.einsum("bkr,bkrd->bkd",
-                               alpha_ss[-1].astype(cdtype), regions_c)
-        carry0 = carry0 + (spat_init,)
-        alpha_prev_st = jnp.concatenate(
-            [jnp.zeros_like(alpha_ss[:1]), alpha_ss[:-1]], axis=0)
-        xs = (h_prev, c_prev, cs, ctxs, alphas, preacts, h_atts, blogits,
-              h_satts, alpha_ss, alpha_prev_st, dhs, dctxs, dalphas)
     final_carry, (dhp_stack, dspat_stack) = \
         jax.lax.scan(body, carry0, xs, reverse=True, unroll=unroll)
     (dh0, dc0, du_att, dc_att, db_sel, du_s, dc_s, dpctx, dctx,
-     dpe_s_acc, dw_sf, dw_sfa) = final_carry[:12]
+     dpe_s_acc, dw_sf, dw_sfa) = final_carry
 
     # ---- weight gradients as single GEMMs over all T*B rows ----
     P = dhp_stack.shape[-1]
@@ -578,18 +480,8 @@ def run(params, cfg, sc, state0, x_pre_all_tm):
     from .step import _h_projection_weights
     hw = sc.h_proj_w if sc.h_proj_w is not None \
         else _h_projection_weights(params, cfg)
-    # Pallas forward attention core: 'auto' engages on TPU only (on CPU
-    # the kernel runs in interpret mode — correct but slow — so tests
-    # opt in explicitly with 'on').
-    use_attn_kernel = (cfg.train_fwd_kernel == "on"
-                       or (cfg.train_fwd_kernel == "auto"
-                           and jax.default_backend() == "tpu"))
-    use_tail_kernel = (cfg.train_tail_kernel == "on"
-                       or (cfg.train_tail_kernel == "auto"
-                           and jax.default_backend() == "tpu"))
     static = (cfg.dim, cfg.attn_dim, bool(cfg.selector),
-              int(cfg.scan_unroll), cfg.compute_dtype, use_attn_kernel,
-              use_tail_kernel)
+              int(cfg.scan_unroll), cfg.compute_dtype)
     return fused_sequence(static, hw, params["Wc"], params["U_att"],
                           params["c_att"], params["b_sel"], sc.ctx,
                           sc.pctx, sc.ctx_mask, state0.h, state0.c,
@@ -602,28 +494,15 @@ def run_spatial(params, cfg, sc, state0, x_pre_all_tm):
     from .step import _h_projection_weights
     hw = sc.h_proj_w if sc.h_proj_w is not None \
         else _h_projection_weights(params, cfg)
-    # Dpe accumulator dtype: its own knob, decoupled from wgrad_dtype
-    # (bf16 measured -23% grad step here, round 3, while the temporal
-    # wgrad bf16 path measured NEGATIVE in round 2).  Exact f32 math
-    # whenever compute is f32 (the parity-test configuration).
+    # Dpe accumulator dtype: its own knob, decoupled from wgrad_dtype.
+    # Exact f32 math whenever compute is f32 (the parity-test
+    # configuration).
     acc_dt = ("bfloat16" if (cfg.spatial_wgrad_dtype == "bfloat16"
                              and cfg.compute_dtype != "float32")
               else "float32")
-    # Fused Pallas backward-spatial step: 'auto' engages on TPU only
-    # (on CPU the kernel runs in interpret mode — correct but slow —
-    # so tests opt in explicitly with 'on').
-    use_kernel = (cfg.spatial_bwd_kernel == "on"
-                  or (cfg.spatial_bwd_kernel == "auto"
-                      and jax.default_backend() == "tpu"))
-    use_attn_kernel = (cfg.train_fwd_kernel == "on"
-                       or (cfg.train_fwd_kernel == "auto"
-                           and jax.default_backend() == "tpu"))
-    use_tail_kernel = (cfg.train_tail_kernel == "on"
-                       or (cfg.train_tail_kernel == "auto"
-                           and jax.default_backend() == "tpu"))
     static = (cfg.dim, cfg.attn_dim, int(cfg.region_dim),
               bool(cfg.selector), int(cfg.scan_unroll), cfg.compute_dtype,
-              acc_dt, use_kernel, use_attn_kernel, use_tail_kernel)
+              acc_dt)
     return fused_sequence_spatial(
         static, hw, params["Wc"], params["U_att"], params["c_att"],
         params["b_sel"], params["Us_att"], params["cs_att"],

@@ -1,8 +1,7 @@
 """The fused spatial-temporal attention + LSTM decoder step (pure jnp).
 
 This is the semantic heart of the model (reference:
-``model_attention.py:§lstm_cond_layer`` — SURVEY.md §3.2) and the
-correctness ORACLE for the Pallas kernel in ``kernel.py``.  One step:
+``model_attention.py:§lstm_cond_layer`` — SURVEY.md §3.2).  One step:
 
     [spatial]  score R regions/frame vs h_{t-1} -> softmax_R -> attended
                region vec per frame, fused into the frame feature
@@ -10,9 +9,9 @@ correctness ORACLE for the Pallas kernel in ``kernel.py``.  One step:
     [selector] beta = sigmoid(W_sel h) scales the context
     [LSTM]     gates from (prev word emb, h_{t-1}, context)
 
-TPU-first departures from the reference:
+Departures from the reference:
   * all h-dependent projections are issued as ONE fused matmul
-    (weights concatenated at trace time -> a single MXU pass),
+    (weights concatenated at trace time),
   * the h-independent projections of the frame/region banks are
     precomputed once OUTSIDE the scan (``precompute``) instead of being
     recomputed per step inside theano.scan,
@@ -75,12 +74,6 @@ class StepContext(NamedTuple):
     gates_w: Optional[jax.Array] = None    # (dw+dim+ctx, 4d) = [W; U; Wc]
     gates_w_q: Optional[jax.Array] = None  # int8 gates stack (decode_quant)
     gates_scale: Optional[jax.Array] = None  # (4d,) per-column dequant scale
-    # fused gates+LSTM Pallas kernel operands (model.gates_kernel):
-    # gate-interleaved, row-padded layouts built once per decode program
-    # so the kernel streams the weight stack from HBM exactly once/step
-    gk_w: Optional[jax.Array] = None       # (Kp, Tn, 4, TNd) int8|cdtype
-    gk_scale: Optional[jax.Array] = None   # (Tn, 4, TNd) f32 (int8 only)
-    gk_bias: Optional[jax.Array] = None    # (Tn, 4, TNd) f32
 
 
 class StepOut(NamedTuple):
@@ -92,7 +85,7 @@ class StepOut(NamedTuple):
 
 
 def _dot(a: jax.Array, b: jax.Array, cdtype) -> jax.Array:
-    """Matmul in compute dtype with fp32 accumulation (MXU-friendly).
+    """Matmul in compute dtype with fp32 accumulation.
 
     ``astype`` is a no-op when the operand is already in compute dtype —
     ``cast_params`` pre-casts weight matrices once per forward so the
@@ -110,10 +103,9 @@ def _dot_bf16_wgrad(a: jax.Array, w: jax.Array, cdtype_name: str
 
     JAX's scan transpose accumulates cotangents of loop-invariant bf16
     weights in an fp32 carry; for the (dim, 4*dim+attn+1) gates stack
-    that carry is 220 MB read+written EVERY backward scan step — the
-    single largest cost in the measured train step (7.5 ms/step of
-    40 ms, profiled on v5e at reference scale).  Returning the per-step
-    contribution as bf16 halves that accumulator traffic.  Opt-in via
+    that carry is 220 MB read+written EVERY backward scan step.
+    Returning the per-step contribution as bf16 halves that
+    accumulator traffic.  Opt-in via
     ``ModelConfig.wgrad_dtype='bfloat16'`` — bf16 accumulation over the
     ~30 scan steps costs gradient precision (tested bound ~1e-2
     relative), which adadelta's per-coordinate normalization tolerates.
@@ -172,8 +164,7 @@ def precompute(params: Params, cfg: ModelConfig, ctx: jax.Array,
     ``decoder.encode_context`` for the input fusion).
     """
     cdtype = jnp.dtype(cfg.compute_dtype)
-    # pctx stays fp32: measured on v5e, storing it bf16 costs ~8% decode
-    # (kernel re-upcasts) — attention reads are not the bottleneck
+    # pctx stays fp32: the attention's tanh input keeps full precision
     pctx = _dot(ctx, params["Wc_att"], cdtype) + params["b_att"]
     denom = jnp.maximum(jnp.sum(ctx_mask, axis=1, keepdims=True), 1.0)
     mean_ctx = jnp.sum(ctx * ctx_mask[..., None], axis=1) / denom
@@ -191,25 +182,20 @@ def precompute(params: Params, cfg: ModelConfig, ctx: jax.Array,
     gates_w_q = gates_scale = None
     if cfg.decode_quant == "int8":
         # per-output-column symmetric weight quantization, done ONCE per
-        # decode program (precompute runs outside the while_loop) — the
-        # v5e int8 MXU runs the gates matmul at ~2x the bf16 rate
+        # decode program (precompute runs outside the while_loop); int8
+        # tensor cores run the gates matmul at twice the bf16 rate
         w32 = gates_w.astype(jnp.float32)
         gates_scale = jnp.maximum(jnp.max(jnp.abs(w32), axis=0),
                                   1e-8) / 127.0
         gates_w_q = jnp.clip(jnp.round(w32 / gates_scale[None, :]),
                              -127, 127).astype(jnp.int8)
-    gk_w = gk_scale = gk_bias = None
-    if cfg.gates_kernel != "off" and gates_kernel_layout(cfg) is not None:
-        gk_w, gk_scale, gk_bias = _gates_kernel_operands(
-            params, cfg, gates_w, gates_w_q, gates_scale)
     return StepContext(ctx=ctx, pctx=pctx, ctx_mask=ctx_mask,
                        mean_ctx=mean_ctx, regions=regions, pregion=pregion,
                        w_sf_att=w_sf_att,
                        h_proj_w=_h_projection_weights(params, cfg),
                        h_att_w=_h_att_weights(params, cfg),
                        gates_w=gates_w, gates_w_q=gates_w_q,
-                       gates_scale=gates_scale,
-                       gk_w=gk_w, gk_scale=gk_scale, gk_bias=gk_bias)
+                       gates_scale=gates_scale)
 
 
 def init_state(params: Params, cfg: ModelConfig, sc: StepContext) -> StepState:
@@ -239,9 +225,8 @@ def _h_projection_weights(params: Params, cfg: ModelConfig) -> jax.Array:
 def _h_att_weights(params: Params, cfg: ModelConfig) -> jax.Array:
     """h-projection weights for the DECODE path: attention/selector
     columns only ([Wd_att | W_sel (| Wsd_att)]) — the LSTM gate term
-    h @ U instead rides in the combined gates matmul (profiled on v5e:
-    the split saves the f32 (B, 4d+attn+1) materialization + layout
-    copy per decode step)."""
+    h @ U instead rides in the combined gates matmul (the split saves
+    the f32 (B, 4d+attn+1) materialization per decode step)."""
     cols = [params["Wd_att"], params["W_sel"][:, None]]
     if cfg.use_spatial:
         cols.append(params["Wsd_att"])
@@ -255,77 +240,29 @@ def _gates_weights(params: Params) -> jax.Array:
     return jnp.concatenate([params["W"], params["U"], params["Wc"]], axis=0)
 
 
-_GK_TND = 128   # dim-strip width of the fused gates+LSTM kernel
-
-
-def gates_kernel_layout(cfg: ModelConfig):
-    """Static layout of the fused gates+LSTM kernel's operands, or None
-    when the model shape doesn't tile (caller keeps the XLA path).
-
-    Returns (dwp, kp, tn, tnd): the padded embedding width, padded
-    contraction length [emb_pad | h | ctx], number of dim strips, and
-    strip width.  dim and ctx_dim must be lane-aligned; the embedding
-    rows pad to 128 (zero rows in the weights, zero columns in x_cat —
-    exact no-ops in the matmul)."""
-    tnd = _GK_TND
-    if cfg.dim % tnd or cfg.ctx_dim % 128:
-        return None
-    dwp = -(-cfg.dim_word // 128) * 128
-    kp = dwp + cfg.dim + cfg.ctx_dim
-    return dwp, kp, cfg.dim // tnd, tnd
-
-
-def _gates_kernel_operands(params: Params, cfg: ModelConfig,
-                           gates_w: jax.Array,
-                           gates_w_q: Optional[jax.Array],
-                           gates_scale: Optional[jax.Array]):
-    """Row-pad and gate-interleave the gates stack for the Pallas
-    kernel (kernel.gates_lstm_pallas): (Kp, Tn, 4, TNd) where strip t
-    carries the i/f/o/g columns of dim slice [t*TNd, (t+1)*TNd) — so a
-    single N-strip holds everything the LSTM pointwise epilogue needs.
-    Built once per decode program; int8 weights (decode_quant) reuse
-    the already-quantized stack so kernel and jnp paths share the exact
-    same quantization grid."""
-    dwp, kp, tn, tnd = gates_kernel_layout(cfg)
-    dim = cfg.dim
-    dw0 = cfg.dim_word
-
-    def reorder(w):
-        pad = jnp.zeros((dwp - dw0, w.shape[1]), w.dtype)
-        wp = jnp.concatenate([w[:dw0], pad, w[dw0:]], axis=0)  # (Kp, 4d)
-        return wp.reshape(kp, 4, tn, tnd).transpose(0, 2, 1, 3)
-
-    if gates_w_q is not None:
-        gk_w = reorder(gates_w_q)
-        gk_scale = gates_scale.reshape(4, tn, tnd).transpose(1, 0, 2)
-    else:
-        gk_w = reorder(gates_w.astype(jnp.dtype(cfg.compute_dtype)))
-        gk_scale = None
-    gk_bias = params["b"].astype(jnp.float32).reshape(
-        4, tn, tnd).transpose(1, 0, 2)
-    return gk_w, gk_scale, gk_bias
-
-
 def _attention_core_jnp(h_att, beta_logit, pctx_k, ctx_k, ctx_mask, u_att,
                         c_att, b_sel, selector: bool
                         ) -> Tuple[jax.Array, jax.Array]:
-    """Temporal attention + selector gate (the jnp oracle core).
+    """Temporal attention + selector gate.
 
-    The Pallas kernel (``kernel.attention_core_pallas``) implements this
-    exact contract; ``step_with_core`` swaps between them.
-    Returns (ctx_t (Bs, Dc) fp32, alpha (Bs, K) fp32).
+    Returns (ctx_t (Bs, Dc) fp32, alpha (Bs, K) fp32).  XLA fuses the
+    tanh, the multiply and the reduction over A into one reduction, so
+    the (Bs, K, A) tanh is never written to device memory.
 
     Beam broadcasting: the state batch ``Bs = h_att.shape[0]`` may be a
     multiple of the context batch ``Bc = pctx_k.shape[0]`` (beam search
     keeps k hypotheses per video).  The context is NOT tiled k times in
-    HBM — the reduction broadcasts over the beam axis, cutting context
+    device memory — the reduction broadcasts over the beam axis, cutting context
     read traffic by k per decode step.
     """
     bs = h_att.shape[0]
     bc = pctx_k.shape[0]
+    # scores as a multiply-reduce, not a dot: XLA fuses add, tanh,
+    # multiply and reduce into one reduction, where a dot_general
+    # becomes a GEMM whose (Bs, K, A) operand is written out first
     if bs == bc:
         e = jnp.tanh(pctx_k + h_att[:, None, :])
-        scores = jnp.einsum("bkd,d->bk", e, u_att.astype(e.dtype)) + c_att
+        scores = jnp.sum(e * u_att.astype(e.dtype), axis=-1) + c_att
         alpha = masked_softmax(scores.astype(jnp.float32), ctx_mask,
                                axis=-1)
         ctx_t = jnp.einsum("bk,bkd->bd", alpha.astype(ctx_k.dtype),
@@ -334,8 +271,7 @@ def _attention_core_jnp(h_att, beta_logit, pctx_k, ctx_k, ctx_mask, u_att,
         nb = bs // bc
         hk = h_att.reshape(bc, nb, 1, h_att.shape[-1])
         e = jnp.tanh(pctx_k[:, None, :, :] + hk)            # (Bc,nb,K,A)
-        scores = jnp.einsum("bjkd,d->bjk", e,
-                            u_att.astype(e.dtype)) + c_att
+        scores = jnp.sum(e * u_att.astype(e.dtype), axis=-1) + c_att
         alpha = masked_softmax(scores.astype(jnp.float32),
                                ctx_mask[:, None, :], axis=-1)
         ctx_t = jnp.einsum("bjk,bkd->bjd", alpha.astype(ctx_k.dtype),
@@ -351,7 +287,7 @@ def _attention_core_jnp(h_att, beta_logit, pctx_k, ctx_k, ctx_mask, u_att,
 
 def _spatial_core_jnp(h_satt, pregion, regions, u_s, c_s, cdtype
                       ) -> Tuple[jax.Array, jax.Array]:
-    """Spatial attention over R regions per frame (jnp oracle core).
+    """Spatial attention over R regions per frame.
 
     h_satt is (Bs, s) with Bs = Bc * nb (beam broadcast against the
     un-tiled region bank).  Returns (spat (Bc, nb, K, Dr) fp32-ish,
@@ -362,20 +298,18 @@ def _spatial_core_jnp(h_satt, pregion, regions, u_s, c_s, cdtype
     nb = bs // bc
     hsk = h_satt.reshape(bc, nb, 1, 1, h_satt.shape[-1])
     e_s = jnp.tanh(pregion[:, None] + hsk)          # (Bc, nb, K, R, s)
-    e_s = jnp.einsum("bjkrd,d->bjkr", e_s.astype(cdtype),
-                     u_s.astype(cdtype)) + c_s
+    # multiply-reduce (f32 accumulation), fused by XLA with the tanh
+    e_s = jnp.sum(e_s.astype(cdtype) * u_s.astype(cdtype), axis=-1,
+                  dtype=jnp.float32) + c_s
     alpha_s = masked_softmax(e_s.astype(jnp.float32), None, axis=-1)
     spat = jnp.einsum("bjkr,bkrd->bjkd", alpha_s.astype(cdtype),
                       regions.astype(cdtype))       # (Bc, nb, K, Dr)
     return spat, alpha_s
 
 
-def step_with_core(params: Params, cfg: ModelConfig, state: StepState,
-                   sc: StepContext, emb_t: jax.Array,
-                   x_pre: Optional[jax.Array] = None,
-                   attention_core=_attention_core_jnp,
-                   spatial_core=_spatial_core_jnp,
-                   gates_core=None) -> StepOut:
+def step(params: Params, cfg: ModelConfig, state: StepState,
+         sc: StepContext, emb_t: jax.Array,
+         x_pre: Optional[jax.Array] = None) -> StepOut:
     """One decoder step.  ``emb_t`` is the (B, dim_word) previous-word
     embedding (teacher-forced in training, model-fed in decoding).
     ``x_pre`` optionally carries the precomputed input projection
@@ -387,7 +321,7 @@ def step_with_core(params: Params, cfg: ModelConfig, state: StepState,
     h, c = state
     fused_gates = x_pre is None   # decode path: one [emb|h|ctx] matmul
 
-    # --- single fused h-projection (MXU); the weight concat is hoisted
+    # --- single fused h-projection; the weight concat is hoisted
     # into precompute so the scan body sees a loop-invariant constant.
     # Teacher-forced training (x_pre given) folds U into it; decode
     # projects only the attention/selector columns and computes the
@@ -421,7 +355,7 @@ def step_with_core(params: Params, cfg: ModelConfig, state: StepState,
         h_satt = hp[:, sat_off:]                    # (Bs, s_attn)
         # spatial scores over R regions within each frame (beam axis j
         # broadcasts against the un-tiled region bank)
-        spat, alpha_s = spatial_core(
+        spat, alpha_s = _spatial_core_jnp(
             h_satt, sc.pregion, sc.regions, params["Us_att"],
             params["cs_att"], cdtype)
         ctx_k = ctx_k[:, None] + _dot(spat, params["W_spat_fuse"], cdtype)
@@ -435,28 +369,18 @@ def step_with_core(params: Params, cfg: ModelConfig, state: StepState,
     ctx_mask = sc.ctx_mask
     if pctx_k.shape[0] != ctx_mask.shape[0]:
         ctx_mask = jnp.repeat(ctx_mask, nb, axis=0)  # (tiny; spatial+beam)
-    ctx_t, alpha = attention_core(
+    ctx_t, alpha = _attention_core_jnp(
         h_att, beta_logit, pctx_k, ctx_k, ctx_mask,
         params["U_att"], params["c_att"], params["b_sel"], cfg.selector)
 
     # --- LSTM gates ---
     if fused_gates:
-        if gates_core is not None and sc.gk_w is not None:
-            # fused Pallas gates+LSTM kernel: matmul + dequant + bias +
-            # pointwise + c/h update in one pass (the preactivation
-            # never exists in HBM); falls through to the XLA path when
-            # the kernel declines the shape
-            out = gates_core(emb_t, h, ctx_t, c, sc, cfg)
-            if out is not None:
-                h_t, c_t = out
-                return StepOut(h=h_t, c=c_t, ctx_t=ctx_t, alpha=alpha,
-                               alpha_s=alpha_s)
         x_cat = jnp.concatenate(
             [emb_t.astype(cdtype), h.astype(cdtype),
              ctx_t.astype(cdtype)], axis=1)
         if sc.gates_w_q is not None:
-            # W8A8 dynamic: per-row activation scale on the VPU, int8
-            # MXU matmul with int32 accumulation, fp32 dequant
+            # W8A8 dynamic: per-row activation scale, s8 x s8 -> s32
+            # matmul, fp32 dequant
             x32 = x_cat.astype(jnp.float32)
             s_r = jnp.maximum(jnp.max(jnp.abs(x32), axis=1,
                                       keepdims=True), 1e-8) / 127.0
@@ -482,14 +406,6 @@ def step_with_core(params: Params, cfg: ModelConfig, state: StepState,
     return StepOut(h=h_t, c=c_t, ctx_t=ctx_t, alpha=alpha, alpha_s=alpha_s)
 
 
-def step(params: Params, cfg: ModelConfig, state: StepState,
-         sc: StepContext, emb_t: jax.Array,
-         x_pre: Optional[jax.Array] = None) -> StepOut:
-    """The default (pure-jnp) decoder step — the correctness oracle."""
-    return step_with_core(params, cfg, state, sc, emb_t, x_pre,
-                          attention_core=_attention_core_jnp)
-
-
 def logit_activation(params: Params, cfg: ModelConfig, h: jax.Array,
                      ctx_t: jax.Array, emb: jax.Array,
                      dropout_rng: Optional[jax.Array] = None,
@@ -497,8 +413,8 @@ def logit_activation(params: Params, cfg: ModelConfig, h: jax.Array,
     """The (.., dim_word) pre-vocab activation (reference ff_logit_lstm/
     ctx/prev merge + tanh + dropout) — everything of the logit stack
     except the final vocab matmul.  Split out so the decode path can
-    feed it to the fused Pallas logit-tail kernel (matmul + logsumexp +
-    top-k in one VMEM pass, never materializing (B, n_words) in HBM)."""
+    feed it to the fused logit-tail kernel (matmul + logsumexp + top-k
+    without materializing (B, n_words) logits, ``kernel.py``)."""
     cdtype = jnp.dtype(cfg.compute_dtype)
     logit = (_dot(h, params["ff_logit_lstm_W"], cdtype)
              + params["ff_logit_lstm_b"]
@@ -522,8 +438,8 @@ def logits_from_states(params: Params, cfg: ModelConfig, h: jax.Array,
     """Output projection to vocab logits (reference ff_logit_* stack).
 
     Shapes are arbitrary-leading: works for (B, ...) per-step in decoding
-    AND (T, B, ...) whole-sequence after scan (the TPU-first trick — one
-    big (T*B, dim) @ (dim, dim_word) MXU pass instead of T small ones).
+    AND (T, B, ...) whole-sequence after scan (one big
+    (T*B, dim) @ (dim, dim_word) matmul instead of T small ones).
     """
     cdtype = jnp.dtype(cfg.compute_dtype)
     logit = logit_activation(params, cfg, h, ctx_t, emb,

@@ -2,7 +2,7 @@
 checkpointing, early stopping.
 
 Reference: ``model_attention.py:§train`` + ``common.py`` optimizer
-factories (SURVEY.md §3.1).  TPU-first differences:
+factories (SURVEY.md §3.1).  Differences:
 
   * ONE jitted, donated train step (forward+backward+update fused by
     XLA) instead of the reference's separate f_grad_shared/f_update
@@ -11,8 +11,8 @@ factories (SURVEY.md §3.1).  TPU-first differences:
     reference; rmsprop/sgd/adam available) with global-norm clipping
     (reference ``clip_c``),
   * data parallelism by construction: params replicated, batch sharded
-    on the mesh data axis; XLA emits the ICI psum (SURVEY.md §2 row 10),
-  * checkpointing via Orbax: params + optimizer state + step + rng +
+    on the mesh data axis; XLA emits the psum (SURVEY.md §2 row 10),
+  * checkpointing of params + optimizer state + step + rng +
     best-metric record (the reference saves params only and silently
     resets adadelta accumulators on reload — SURVEY.md §5).
 """
@@ -45,12 +45,9 @@ def _adadelta_slot_dtype(lr: float, slot_dtype, rho: float = 0.9,
     STORED in ``slot_dtype`` (update math stays f32: slots are cast in,
     rounded out).
 
-    Why: the optimizer island is pure HBM streaming — 10.3 ms of the
-    28.9 ms temporal train step at 101 M params, vs a measured 8.4 ms
-    triad ceiling for its 3.0 GB of traffic (tools/probe_optimizer.py,
-    tools/probe_temporal_train.py; flattening and fusing measured flat
-    — it is bandwidth-bound, not leaf-bound).  bf16 slots cut the
-    traffic to ~2.0 GB.  With slot_dtype=float32 this is bit-exact vs
+    Why: the optimizer update is pure memory streaming — about 3.0 GB
+    of traffic per step at 101 M params, bandwidth-bound rather than
+    leaf-bound.  bf16 slots cut the traffic to ~2.0 GB.  With slot_dtype=float32 this is bit-exact vs
     optax.adadelta (pinned in tests/test_train.py)."""
     f32 = jnp.float32
 
@@ -179,7 +176,7 @@ def make_train_step(
     """Build the fused, jitted train step.
 
     With a mesh: state replicated / batch sharded on the data axis —
-    jit emits the gradient allreduce over ICI.  ``use_shard_map`` picks
+    jit emits the gradient allreduce.  ``use_shard_map`` picks
     the explicit-collective path (hand-placed ``lax.psum`` over the
     data axis) instead of relying on XLA's sharding propagation; both
     produce bit-identical updates (tests/test_parallel.py).
@@ -202,7 +199,7 @@ def make_train_step(
         numerators/denominators; ONE weighted-mean divide at the end
         makes the result exactly the full-batch gradient regardless of
         how the wrap-padding weights split across microbatches (same
-        decomposition the shard_map DP path psums over ICI).  Only one
+        decomposition the shard_map DP path psums).  Only one
         microbatch's activations are live at a time — the memory
         alternative to model.remat."""
         from .loss import loss_from_terms, loss_terms
@@ -281,12 +278,13 @@ def make_train_step(
 
 def _make_shard_map_train_step(mcfg: ModelConfig, tcfg: TrainConfig,
                                step_fn, mesh, opt):
-    """Explicit ICI-collective data-parallel step (SURVEY.md §2 row 10).
+    """Explicit-collective data-parallel step (SURVEY.md §2 row 10).
 
     Each shard computes unreduced loss terms and local gradients of the
-    summed objective; ``lax.psum`` over the 'data' axis (ICI on a v5e
-    slice) produces the exact global gradient before the (replicated)
-    optimizer update — bit-identical to the single-device step.
+    summed objective; ``lax.psum`` over the 'data' axis (NVLink between
+    the GPUs of one host) produces the exact global gradient before the
+    (replicated) optimizer update — the same math as the single-device
+    step.
     """
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
@@ -377,25 +375,59 @@ def evaluate_nll(params, mcfg: ModelConfig, ds: Dataset, batch_size: int,
 
 
 # ---------------------------------------------------------------------------
-# Checkpointing (Orbax) — SURVEY.md §5 'Checkpoint / resume'
+# Checkpointing — SURVEY.md §5 'Checkpoint / resume'
 # ---------------------------------------------------------------------------
 
+_CKPT_FILE = "state.npz"
+
+
 def save_checkpoint(path: str, state: TrainState) -> None:
-    import orbax.checkpoint as ocp
-    path = os.path.abspath(path)
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(path, jax.device_get(state), force=True)
-    ckptr.wait_until_finished()
+    """Write the full train state to ``path/state.npz``: one entry per
+    leaf, keyed by its tree path, in the leaf's own dtype (bfloat16 and
+    other dtypes numpy cannot name are stored as raw bits beside a dtype
+    table).  The file is written under a temporary name and renamed, so
+    a crash never leaves a half-written checkpoint."""
+    import json
+    os.makedirs(path, exist_ok=True)
+    leaves, _ = jax.tree_util.tree_flatten_with_path(jax.device_get(state))
+    arrays, dtypes = {}, {}
+    for kp, leaf in leaves:
+        a = np.asarray(leaf)
+        key = jax.tree_util.keystr(kp)
+        dtypes[key] = a.dtype.name
+        if a.dtype.kind not in "biuf":       # e.g. bfloat16: save the bits
+            a = a.view(f"u{a.dtype.itemsize}")
+        arrays[key] = a
+    arrays["__dtypes__"] = np.asarray(json.dumps(dtypes))
+    tmp = os.path.join(path, _CKPT_FILE + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, os.path.join(path, _CKPT_FILE))
 
 
 def restore_checkpoint(path: str, template: TrainState) -> TrainState:
-    import orbax.checkpoint as ocp
-    path = os.path.abspath(path)
-    ckptr = ocp.StandardCheckpointer()
-    restored = ckptr.restore(path, jax.device_get(template))
-    # restore yields host numpy arrays; put them on device so traced
-    # indexing (e.g. Wemb[token] inside decode scans) works
-    return jax.tree.map(jnp.asarray, restored)
+    """Read a checkpoint written by ``save_checkpoint`` into the structure
+    of ``template``.  Every template leaf must be present with the same
+    shape; the stored dtype is kept."""
+    import json
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(template)
+    with np.load(os.path.join(path, _CKPT_FILE)) as z:
+        dtypes = json.loads(str(z["__dtypes__"]))
+        out = []
+        for kp, leaf in leaves:
+            key = jax.tree_util.keystr(kp)
+            if key not in dtypes:
+                raise KeyError(f"{path}: checkpoint has no entry {key}")
+            a = z[key]
+            if a.dtype.name != dtypes[key]:
+                a = a.view(jnp.dtype(dtypes[key]))
+            if a.shape != np.shape(leaf):
+                raise ValueError(f"{path}: {key} has shape {a.shape}, "
+                                 f"expected {np.shape(leaf)}")
+            # on device, so traced indexing (Wemb[token] inside decode
+            # scans) works
+            out.append(jnp.asarray(a))
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def _fit_state_path(save_dir: str) -> str:
@@ -404,7 +436,7 @@ def _fit_state_path(save_dir: str) -> str:
 
 def save_fit_state(save_dir: str, *, best: float, best_step: int,
                    bad_rounds: int, history: list, metric: str) -> None:
-    """Persist the early-stop bookkeeping next to the Orbax checkpoint
+    """Persist the early-stop bookkeeping next to the checkpoint
     (the reference saves ``history_errs`` with the model — SURVEY.md §5;
     without this, a resumed run re-saves a worse "best" checkpoint and
     restarts patience from zero)."""

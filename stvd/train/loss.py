@@ -25,7 +25,7 @@ def loss_terms(
     """Unreduced loss terms (weighted sums).
 
     Separated from the final ratios so data-parallel shards can psum
-    the numerators/denominators over ICI before dividing — giving
+    the numerators/denominators before dividing — giving
     bit-identical loss/grads to a single-device run regardless of how
     examples (and their weights) split across shards.
     """

@@ -1,19 +1,20 @@
-"""Data parallelism over the TPU mesh.
+"""Data parallelism over a device mesh.
 
 The reference is single-process/single-GPU with NO distributed backend
-(SURVEY.md §2 rows 9-10).  The TPU-native equivalent specified there:
-a 1-D ``jax.sharding.Mesh(('data',))`` over ICI, batch sharded on the
-data axis, parameters replicated, gradient allreduce emitted by XLA as
-``psum`` collectives.  Two code paths are provided:
+(SURVEY.md §2 rows 9-10).  The equivalent specified there: a 1-D
+``jax.sharding.Mesh(('data',))`` over a plain device list, batch
+sharded on the data axis, parameters replicated, gradient allreduce
+emitted by XLA as ``psum`` collectives.  Two code paths are provided:
 
   * the pjit path (primary): ``jax.jit`` with NamedShardings — XLA
-    inserts the ICI allreduce automatically from the sharding layout,
+    inserts the allreduce automatically from the sharding layout,
   * an explicit ``shard_map`` path with a hand-placed ``lax.psum``,
     used by tests to pin the collective semantics (grad parity with
     single-device — SURVEY.md §4 'distributed without a cluster').
 
-v5e-4 is one slice, so every collective here rides ICI; DCN never
-enters (no multi-host at target scale).
+The GPUs of one host reach each other all to all over NVLink, so the
+mesh follows the algorithm alone (no topology shaping); multi-host is
+out of scope.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def replicate(tree: Any, mesh: Mesh) -> Any:
 
 
 def psum_mean_grads(grads: Any, axis_name: str = DATA_AXIS) -> Any:
-    """Explicit ICI gradient allreduce (used inside shard_map bodies)."""
+    """Explicit gradient allreduce (used inside shard_map bodies)."""
     return jax.tree.map(lambda g: jax.lax.pmean(g, axis_name), grads)
 
 
@@ -67,7 +68,7 @@ def psum_mean_grads(grads: Any, axis_name: str = DATA_AXIS) -> Any:
 # Tensor parallelism (2-D data x model mesh)
 #
 # No reference equivalent (the reference is single-GPU Theano); this is
-# the TPU-native scale-out axis beyond DP for when the model dims grow.
+# the device-level scale-out axis beyond DP for when the model dims grow.
 # Design (the scaling-book recipe — annotate, let XLA insert
 # collectives):
 #

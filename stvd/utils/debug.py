@@ -1,7 +1,7 @@
 """Debugging aids (SURVEY.md §5 'race detection / sanitizers').
 
 The reference's only numeric-health tool is ``common.py:§grad_nan_report``
-(dump per-param gradient stats when the cost goes NaN).  TPU-native
+(dump per-param gradient stats when the cost goes NaN).  JAX-native
 equivalents: ``jax_debug_nans`` as the always-on mode, plus a pure
 functional per-parameter gradient stats report usable inside jit via
 ``jax.debug.print`` or host callbacks.

@@ -1,7 +1,7 @@
 """Profiling helpers (SURVEY.md §5 'Tracing / profiling').
 
 The reference's only profiling was Theano's ``profile=True`` compile
-flag.  TPU-native: ``jax.profiler`` traces viewable in Perfetto /
+flag.  JAX-native: ``jax.profiler`` traces viewable in Perfetto /
 TensorBoard, plus a lightweight step timer for steps/sec in the train
 log.
 """

@@ -3,12 +3,12 @@ outgrows one chip's HBM.
 
 The reference holds its whole feature dict in host RAM and feeds the
 GPU per batch (``data_engine.py:§Movie2Caption``); SURVEY.md §5 names
-the TPU-native scale-out ("if feature banks exceed HBM, shard the
+the device-level scale-out ("if feature banks exceed HBM, shard the
 *bank* across chips") as future work — this makes it first-class: the
 bank's video axis is sharded over a 1-D ``Mesh(('data',))``
 (``FeatureBank.to_device_sharded``), and an id request runs an
 explicit shard_map gather (each chip looks up the rows it owns, one
-``psum_scatter`` over ICI lands each chip its slice of the decode
+``psum_scatter`` lands each device its slice of the decode
 batch) fused into the decode dispatch.
 
 Pinned invariants, all on the 8-virtual-device conftest mesh:
@@ -107,13 +107,17 @@ def test_sharded_bank_nbest_ids_match():
 
 
 def test_sharded_bank_pallas_step_matches():
-    """The fused Pallas kernels stay engaged under a SHARDED bank:
-    gather and decode run per shard inside ONE shard_map region, so
-    ``step_pallas`` (+ its fused logit tail) applies to each shard's
-    local rows (round 4 silently swapped to the jnp oracle here).
-    Pinned: sharded-bank captions with step_pallas == single-device
-    captions with step_pallas (both interpret mode on CPU)."""
-    from stvd.model.kernel import step_pallas
+    """The fused logit-tail kernel stays engaged under a SHARDED bank:
+    gather and decode run per shard inside ONE shard_map region, so the
+    tail step applies to each shard's local rows.  Pinned:
+    sharded-bank captions with the tail step == single-device captions
+    with it (both interpret mode on CPU)."""
+    import functools
+    from stvd.model import kernel as kmod
+    step_fn = kmod.make_tail_step(interpret=True)
+    step_fn.make_logit_tail = functools.partial(
+        kmod.make_logit_tail, interpret=True, tr=16, tv=32, tk=64,
+        splits=2)
 
     mcfg = dataclasses.replace(MCFG, n_words=256, dim_word=128)
     cfg = Config(model=mcfg, decode=DecodeConfig(beam_size=2, maxlen=6,
@@ -121,13 +125,13 @@ def test_sharded_bank_pallas_step_matches():
     ds = synthetic_dataset(n_videos=8, k=6, d=32, maxlen=8, seed=7)
     params = init_params(jax.random.PRNGKey(3), mcfg)
 
-    cap_ref = Captioner(params, cfg, _vocab(), step_fn=step_pallas)
+    cap_ref = Captioner(params, cfg, _vocab(), step_fn=step_fn)
     cap_ref.attach_bank(ds.bank)
     ids = cap_ref.bank_ids
     want = cap_ref.caption_ids(ids)
 
     mesh = make_mesh(jax.devices()[:8])
-    cap = Captioner(params, cfg, _vocab(), step_fn=step_pallas)
+    cap = Captioner(params, cfg, _vocab(), step_fn=step_fn)
     cap.attach_bank(ds.bank, mesh=mesh)
     assert cap.caption_ids(ids) == want
 
@@ -135,8 +139,8 @@ def test_sharded_bank_pallas_step_matches():
 def test_sharded_bank_nbest_fused_no_feature_rehome(monkeypatch):
     """nbest_ids over a sharded bank runs the fused shard_map
     gather+n-best executable — no jax.device_get rehome of feature
-    arrays (the round-4 path quietly paid the full relay transfer the
-    sharded bank exists to avoid)."""
+    arrays (that would pay the full device-to-host transfer the sharded
+    bank exists to avoid)."""
     ds = _dataset()
     mesh = make_mesh(jax.devices()[:8])
     cap_ref, _ = _captioner(4)

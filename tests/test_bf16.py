@@ -1,9 +1,9 @@
-"""bfloat16 compute-path coverage (the TPU bench configuration).
+"""bfloat16 compute-path coverage (the benchmark configuration).
 
 Params stay fp32; matmuls run in bf16 with fp32 accumulation
 (ModelConfig.compute_dtype). These tests pin that the bf16 path is
 numerically sane and structurally identical to fp32 — on CPU here,
-compiled for MXU on TPU.
+compiled for the GPU's tensor cores.
 """
 
 import dataclasses

@@ -49,6 +49,20 @@ def test_json_roundtrip():
     assert cfg2 == cfg
 
 
+def test_json_drops_switches_of_removed_kernels():
+    """config.json files of older run directories still carry the
+    switches of deleted kernels; loading ignores them."""
+    import json
+    cfg = preset("msvd-spatial")
+    d = json.loads(cfg.to_json())
+    d["model"].update(gates_kernel="off", spatial_bwd_kernel="auto",
+                      train_fwd_kernel="off", train_tail_kernel="off")
+    assert Config.from_json(json.dumps(d)) == cfg
+    d["model"]["no_such_field"] = 1
+    with pytest.raises(TypeError):
+        Config.from_json(json.dumps(d))
+
+
 def test_overrides_typed():
     cfg = Config()
     cfg = apply_overrides(cfg, ["model.dim=96", "train.lr=0.5",

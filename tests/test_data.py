@@ -1,7 +1,7 @@
 """Data-layer tests: vocab, caption encoding, feature banks, batching.
 
 Covers the reference behaviors of data_engine.py (SURVEY.md §2 row 5)
-rebuilt as static-shape TPU-friendly equivalents.
+rebuilt as static-shape XLA-friendly equivalents.
 """
 
 import numpy as np

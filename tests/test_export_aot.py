@@ -2,8 +2,9 @@
 
 The exported decode graph must reproduce the live Captioner exactly:
 same chunking helper, same program — pinned here token-for-token on
-CPU-platform exports, plus a TPU-platform serialization check (the
-Mosaic lowering runs; no hardware executes)."""
+CPU-platform exports, plus CUDA-platform exports made on this CPU host
+(the Triton lowering runs; no GPU executes; chip_smoke.py loads and
+serves such an artifact on the card)."""
 
 import dataclasses
 
@@ -14,6 +15,7 @@ import pytest
 from stvd.api import Captioner
 from stvd.config import Config, DecodeConfig, ModelConfig
 from stvd.data.batching import synthetic_dataset
+from stvd import export_aot
 from stvd.export_aot import (example_batch, export_decoder, load_artifact,
                              save_artifact)
 from stvd.model.decoder import init_params
@@ -88,24 +90,100 @@ def test_artifact_weight_swap_no_reexport(tmp_path):
     assert swapped == Captioner(p1, cfg, vocab).caption(feats)
 
 
-def test_tpu_platform_export_serializes():
-    """platforms=('tpu',) exports the Pallas-kernel decode step from a
-    CPU host (Mosaic lowering, no execution) — the serving artifact the
-    real chip loads."""
-    cfg = Config(model=MCFG, decode=DecodeConfig(beam_size=2, maxlen=8,
+# widths at which the fused logit tail engages (dim_word % 64 == 0,
+# vocab >= 8 vocab tiles)
+KCFG = dataclasses.replace(MCFG, n_words=1024, dim_word=64)
+
+
+@pytest.mark.parametrize("beam", [1, 3])
+def test_cuda_platform_export_serializes(beam):
+    """platforms=('cuda',) exports from a CPU host; beam graphs carry the
+    Triton logit tail as its one allowed custom call, greedy graphs keep
+    the XLA path (the tail declines k = 1)."""
+    cfg = Config(model=KCFG, decode=DecodeConfig(beam_size=beam, maxlen=8,
                                                  decode_batch=2))
-    params = init_params(jax.random.PRNGKey(0), MCFG)
-    exp = export_decoder(params, cfg, platforms=("tpu",))
-    assert len(exp.serialize()) > 0
+    params = init_params(jax.random.PRNGKey(0), KCFG)
+    exp = export_decoder(params, cfg, platforms=("cuda",))
+    assert exp.platforms == ("cuda",)
+    again = export_aot.load_exported(export_aot.dump_exported(exp))
+    assert again.platforms == ("cuda",)
+    assert again.mlir_module_serialized == exp.mlir_module_serialized
+    has_triton = export_aot._TRITON_CALL_TARGET in exp.mlir_module()
+    assert has_triton == (beam > 1)
+
+
+def test_triton_call_needs_the_disabled_check():
+    """jax.export refuses the Triton custom call unless that one target
+    is allowed explicitly — the reason for ``_export``."""
+    from jax import export as jexport
+    from stvd.export_aot import _decode_run_fn
+    from stvd.model.kernel import step_tail
+    cfg = Config(model=KCFG, decode=DecodeConfig(beam_size=2, maxlen=8,
+                                                 decode_batch=2))
+    params = init_params(jax.random.PRNGKey(0), KCFG)
+    run = jax.jit(_decode_run_fn(cfg, step_tail))
+    batch = example_batch(cfg)
+    with pytest.raises(ValueError, match="custom call"):
+        jexport.export(run, platforms=["cuda"])(params, batch)
+    assert export_aot._export(run, ("cuda",), True)(params, batch)
 
 
 def test_kernel_multi_platform_rejected():
     cfg = Config(model=MCFG, decode=DecodeConfig(beam_size=2, maxlen=8,
                                                  decode_batch=2))
     params = init_params(jax.random.PRNGKey(0), MCFG)
-    with pytest.raises(ValueError, match="Pallas"):
-        export_decoder(params, cfg, platforms=("tpu", "cpu"),
+    with pytest.raises(ValueError, match="cuda only"):
+        export_decoder(params, cfg, platforms=("cuda", "cpu"),
                        use_kernel=True)
+
+
+def test_cuda_artifact_buckets_and_nbest(tmp_path):
+    """A default-platform (cuda) artifact with two buckets and n-best
+    graphs, exported from the CPU host: manifest, files, kernel flag."""
+    cfg = Config(model=KCFG, decode=DecodeConfig(beam_size=3, maxlen=8,
+                                                 decode_batch=4))
+    params = init_params(jax.random.PRNGKey(4), KCFG)
+    out = str(tmp_path / "artifact")
+    manifest = save_artifact(out, params, cfg, _vocab(),
+                             batch_sizes=(1, 4), nbest=True)
+    assert manifest["platforms"] == ["cuda"]
+    assert manifest["use_kernel"] is True
+    assert manifest["batch_sizes"] == [1, 4]
+    for b in (1, 4):
+        for kind in ("decode", "nbest"):
+            assert (tmp_path / "artifact" / f"{kind}_b{b}.jaxexport"
+                    ).stat().st_size > 0
+
+
+def test_cuda_data_parallel_export_uses_xla_path(tmp_path):
+    """A sharded cuda export keeps the XLA step (a pallas_call does not
+    partition under sharding propagation)."""
+    cfg = Config(model=KCFG, decode=DecodeConfig(beam_size=2, maxlen=8,
+                                                 decode_batch=4))
+    params = init_params(jax.random.PRNGKey(5), KCFG)
+    manifest = save_artifact(str(tmp_path / "a"), params, cfg, _vocab(),
+                             batch_sizes=(4,), data_parallel=2)
+    assert manifest["use_kernel"] is False
+    assert manifest["platforms"] == ["cuda"]
+    with pytest.raises(ValueError, match="use_kernel"):
+        save_artifact(str(tmp_path / "b"), params, cfg, _vocab(),
+                      batch_sizes=(4,), data_parallel=2, use_kernel=True)
+
+
+def test_load_check_uses_canonical_platform_names(tmp_path, monkeypatch):
+    """The manifest says 'cuda' where jax.default_backend() says 'gpu':
+    the loader compares jax.export's canonical names, so a cuda
+    artifact loads where the current platform is cuda."""
+    assert export_aot.current_platform() == "cpu"
+    cfg = Config(model=KCFG, decode=DecodeConfig(beam_size=2, maxlen=8,
+                                                 decode_batch=2))
+    params = init_params(jax.random.PRNGKey(6), KCFG)
+    out = str(tmp_path / "artifact")
+    save_artifact(out, params, cfg, _vocab())
+    monkeypatch.setattr(export_aot, "current_platform", lambda: "cuda")
+    served = load_artifact(out)
+    assert served.manifest["platforms"] == ["cuda"]
+    assert sorted(served._exported) == [2]
 
 
 def test_example_batch_matches_serving_shapes():
@@ -137,20 +215,20 @@ def test_artifact_int8_serving_path(tmp_path):
 
 
 def test_load_artifact_platform_mismatch(tmp_path):
-    """Loading a tpu-only artifact on a cpu backend fails fast with a
+    """Loading a cuda-only artifact on a cpu backend fails fast with a
     clear error instead of a cryptic XLA platform failure at call
     time."""
     cfg = Config(model=MCFG, decode=DecodeConfig(beam_size=2, maxlen=8,
                                                  decode_batch=2))
     params = init_params(jax.random.PRNGKey(0), MCFG)
     out = str(tmp_path / "artifact")
-    save_artifact(out, params, cfg, _vocab(), platforms=("tpu",))
+    save_artifact(out, params, cfg, _vocab(), platforms=("cuda",))
     with pytest.raises(ValueError, match="re-export"):
         load_artifact(out)
 
 
 def test_artifact_bf16_compute_roundtrip(tmp_path):
-    """compute_dtype='bfloat16' (the TPU production numeric config)
+    """compute_dtype='bfloat16' (the production numeric config)
     exports and roundtrips on CPU too — the artifact matches the live
     bf16 Captioner."""
     m = dataclasses.replace(MCFG, compute_dtype="bfloat16")
@@ -365,8 +443,8 @@ def test_model_parallel_artifact_matches_single_device(tmp_path):
 
 
 def test_model_parallel_rejects_kernel(tmp_path):
-    """TP serving graphs run the jnp oracle step (pallas_call does not
-    auto-partition under SPMD propagation) — explicit use_kernel=True
+    """TP serving graphs run the XLA step (a pallas_call does not
+    partition under sharding propagation) — explicit use_kernel=True
     with model_parallel must fail loudly, not silently mis-shard."""
     cfg = Config(model=MCFG, decode=DecodeConfig(beam_size=2, maxlen=8,
                                                  decode_batch=4))
@@ -391,3 +469,38 @@ def test_model_parallel_weight_swap(tmp_path):
     swapped = load_artifact(out, params=p2)
     live2 = Captioner(p2, cfg, _vocab())
     assert swapped.caption(feats) == live2.caption(feats)
+
+
+def test_artifact_format_needs_no_flatbuffers(tmp_path, monkeypatch):
+    """Artifacts are written and read without jax.export's flatbuffers
+    serializer (absent from some GPU installations): blocking the
+    package changes nothing, sharded graphs included."""
+    import builtins
+    real_import = builtins.__import__
+
+    def no_flatbuffers(name, *a, **k):
+        if name == "flatbuffers" or name.startswith("flatbuffers."):
+            raise ImportError("flatbuffers blocked")
+        return real_import(name, *a, **k)
+
+    import sys as _sys
+    for mod in [m for m in _sys.modules if "serialization" in m
+                and m.startswith("jax._src.export")]:
+        monkeypatch.delitem(_sys.modules, mod)
+    monkeypatch.setattr(builtins, "__import__", no_flatbuffers)
+    cfg = Config(model=MCFG, decode=DecodeConfig(beam_size=2, maxlen=8,
+                                                 decode_batch=4))
+    params = init_params(jax.random.PRNGKey(8), MCFG)
+    out = str(tmp_path / "artifact")
+    save_artifact(out, params, cfg, _vocab(), platforms=("cpu",),
+                  batch_sizes=(4,), data_parallel=2)
+    served = load_artifact(out)
+    feats, _, _ = _feats(4, MCFG, seed=9)
+    assert served.caption(feats) == Captioner(params, cfg,
+                                              _vocab()).caption(feats)
+
+
+def test_load_exported_rejects_other_files():
+    import pickle
+    with pytest.raises(ValueError, match="not an stvd"):
+        export_aot.load_exported(pickle.dumps({"format": "other"}))

@@ -1,9 +1,12 @@
-"""Pallas kernel vs jnp-oracle parity (SURVEY.md §4: 'fused step kernel
-vs a pure-jnp reference step (exact within tolerance)').
+"""The fused logit-tail kernel (Pallas, Triton route) and the plain XLA
+paths that replaced the other hand kernels.
 
-On CPU the kernel runs in interpreter mode; the same code path compiles
-with Mosaic on TPU (exercised by bench.py).
+The tail runs here in the Pallas interpreter (``interpret=True``); the
+same kernel compiles for the GPU, where chip_smoke.py checks it at full
+width.  The plain attention cores are checked against float64 NumPy.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -11,479 +14,296 @@ import numpy as np
 import pytest
 
 from stvd.data.batching import gather_batch, synthetic_dataset
+from stvd.decode.beam import beam_decode
 from stvd.decode.greedy import greedy_decode
 from stvd.model import kernel as kmod
 from stvd.model import step as smod
-from stvd.model.decoder import forward_train, init_params
-from stvd.model.step import StepState, init_state, precompute
+from stvd.model.decoder import init_params
 
 from conftest import small_cfg
 
+# small tiles keep the interpreter quick; rows/vocab below are chosen so
+# that both the row padding and the vocab padding paths run
+_TILES = dict(tr=16, tv=64, tk=64, splits=2)
 
-def _setup(cfg, n=4, seed=0):
+
+def _tail(w, b, k, **kw):
+    return kmod.make_logit_tail(w, b, k, interpret=True,
+                                **dict(_TILES, **kw))
+
+
+def _reference(x, w, b, k):
+    logits = jnp.dot(x, w, preferred_element_type=jnp.float32) + b
+    vals, idx = jax.lax.top_k(logits, k)
+    return vals, idx, jax.nn.logsumexp(logits, axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# the tail against log_softmax + lax.top_k
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [2, 5, 8])
+@pytest.mark.parametrize("v", [1000, 1408])
+def test_logit_tail_matches_topk_and_logsumexp(k, v, dtype):
+    """vals/idx equal lax.top_k of the materialized logits (same index
+    order), lse equals logsumexp; V = 1000 is no multiple of the split
+    width (padded vocab), rows = 24 no multiple of the row tile."""
+    rng = np.random.RandomState(k + v)
+    dt = jnp.dtype(dtype)
+    x = jnp.asarray(rng.randn(24, 128), dt)
+    w = jnp.asarray(rng.randn(128, v) * 0.1, dt)
+    b = jnp.asarray(rng.randn(v), jnp.float32)
+    vals, idx, lse = _tail(w, b, k)(x)
+    rv, ri, rl = _reference(x, w, b, k)
+    assert vals.shape == (24, k) and idx.shape == (24, k)
+    np.testing.assert_array_equal(np.asarray(idx), np.asarray(ri))
+    np.testing.assert_allclose(np.asarray(vals), np.asarray(rv),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(lse), np.asarray(rl),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [2, 5, 8])
+def test_logit_tail_exact_ties_take_lowest_index(k):
+    """All-equal logits: the top-k are the k lowest indices (lax.top_k's
+    rule), and lse = log V exactly; the padded columns never surface."""
+    dw, v = 64, 900
+    tail = _tail(jnp.zeros((dw, v)), jnp.zeros((v,)), k)
+    vals, idx, lse = tail(jnp.zeros((8, dw)))
+    np.testing.assert_array_equal(np.asarray(idx),
+                                  np.tile(np.arange(k), (8, 1)))
+    np.testing.assert_allclose(np.asarray(lse), np.log(v), rtol=1e-6)
+    assert float(jnp.max(jnp.abs(vals))) == 0.0
+
+
+def test_logit_tail_ties_across_splits_and_tiles():
+    """Equal maxima placed in different vocab tiles and different splits
+    come back lowest index first."""
+    dw, v, k = 64, 1024, 5
+    b = np.zeros(v, np.float32)
+    hot = [900, 17, 513, 64, 511, 3]      # spans both splits, many tiles
+    b[hot] = 5.0
+    tail = _tail(jnp.zeros((dw, v)), jnp.asarray(b), k)
+    _, idx, _ = tail(jnp.zeros((4, dw)))
+    np.testing.assert_array_equal(np.asarray(idx[0]), sorted(hot)[:k])
+
+
+@pytest.mark.parametrize("rows", [1, 9, 33])
+def test_logit_tail_pads_rows(rows):
+    """Row counts off the row tile pad with zero rows and slice back."""
+    rng = np.random.RandomState(rows)
+    x = jnp.asarray(rng.randn(rows, 64), jnp.float32)
+    w = jnp.asarray(rng.randn(64, 700) * 0.1, jnp.float32)
+    b = jnp.asarray(rng.randn(700), jnp.float32)
+    vals, idx, lse = _tail(w, b, 3)(x)
+    rv, ri, rl = _reference(x, w, b, 3)
+    assert lse.shape == (rows,)
+    np.testing.assert_array_equal(np.asarray(idx), np.asarray(ri))
+    np.testing.assert_allclose(np.asarray(lse), np.asarray(rl), rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["greedy_k1", "k9", "dw_unaligned",
+                                  "vocab_too_small"])
+def test_logit_tail_declines(case):
+    """Shapes the kernel does not take return None, and the decode loops
+    keep the XLA path.  Greedy (k = 1) is declined on purpose: XLA's
+    log-softmax + argmax was measured faster end to end (PERF.md)."""
+    w, b, k = jnp.zeros((128, 2048)), jnp.zeros((2048,)), 5
+    if case == "greedy_k1":
+        k = 1
+    elif case == "k9":
+        k = 9
+    elif case == "dw_unaligned":
+        w = jnp.zeros((100, 2048))
+    else:
+        w, b = jnp.zeros((128, 100)), jnp.zeros((100,))
+    assert kmod.make_logit_tail(w, b, k) is None
+
+
+def test_merge_splits_is_exact():
+    """The cross-split merge equals top-k / logsumexp over the whole
+    row, ties included (splits concatenate in vocabulary order)."""
+    rng = np.random.RandomState(0)
+    logits = rng.randint(0, 6, (7, 4, 32)).astype(np.float32)  # ties
+    k = 5
+    vals, idx, m, s = [], [], [], []
+    for j in range(4):
+        part = jnp.asarray(logits[:, j])
+        v_j, i_j = jax.lax.top_k(part, k)
+        vals.append(jnp.pad(v_j, ((0, 0), (0, 3))))
+        idx.append(jnp.pad(i_j + 32 * j, ((0, 0), (0, 3))))
+        m_j = jnp.max(part, axis=1)
+        m.append(m_j)
+        s.append(jnp.sum(jnp.exp(part - m_j[:, None]), axis=1))
+    v2, i2, lse = kmod._merge_splits(jnp.stack(vals), jnp.stack(idx),
+                                     jnp.stack(m), jnp.stack(s), k)
+    full = jnp.asarray(logits.reshape(7, 128))
+    rv, ri = jax.lax.top_k(full, k)
+    np.testing.assert_array_equal(np.asarray(i2), np.asarray(ri))
+    np.testing.assert_array_equal(np.asarray(v2), np.asarray(rv))
+    np.testing.assert_allclose(np.asarray(lse),
+                               np.asarray(jax.nn.logsumexp(full, -1)),
+                               rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# choosing the kernel
+# ---------------------------------------------------------------------------
+
+def test_production_selector_never_picks_kernel_on_cpu():
+    assert kmod.get_step_fn(None) is smod.step
+    assert kmod.get_step_fn(False) is smod.step
+    assert kmod.get_step_fn(True) is kmod.step_tail
+    assert getattr(smod.step, "make_logit_tail", None) is None
+
+
+def test_compiled_kernel_off_gpu_raises():
+    """Asking for the compiled kernel off the GPU raises; nothing falls
+    back to the interpreter silently."""
+    w = jnp.zeros((128, 2048))
+    tail = kmod.make_logit_tail(w, jnp.zeros((2048,)), 5)
+    with pytest.raises(Exception, match="interpret"):
+        jax.block_until_ready(tail(jnp.zeros((8, 128))))
+
+
+@pytest.mark.gpu
+def test_compiled_logit_tail_matches_reference(gpu_device):
+    """The Triton-compiled tail at the msvd-beam shape (chip_smoke.py
+    runs the same check on the card)."""
+    rng = np.random.RandomState(0)
+    x = jnp.asarray(rng.randn(1920, 512), jnp.bfloat16)
+    w = jnp.asarray(rng.randn(512, 13056) * 0.05, jnp.bfloat16)
+    b = jnp.asarray(rng.randn(13056), jnp.float32)
+    vals, idx, lse = kmod.make_logit_tail(w, b, 5)(x)
+    rv, ri, rl = _reference(x, w, b, 5)
+    assert float(jnp.mean(idx == ri)) > 0.99
+    np.testing.assert_allclose(np.asarray(lse), np.asarray(rl), rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# decode with the tail == decode without it
+# ---------------------------------------------------------------------------
+
+def _decode_setup(cfg, n=4, seed=0):
     ds = synthetic_dataset(n_videos=n, k=cfg.n_frames, d=cfg.ctx_dim,
                            n_regions=cfg.n_regions if cfg.use_spatial else 0,
                            region_dim=cfg.region_dim, maxlen=10, seed=seed)
     dev = ds.bank.to_device()
     batch = gather_batch(dev, ds.captions, np.arange(n, dtype=np.int32))
-    params = init_params(jax.random.PRNGKey(3), cfg)
-    return params, batch
+    return init_params(jax.random.PRNGKey(3), cfg), batch
 
 
-def test_attention_core_parity(cfg):
-    """The kernel's attention core must match the jnp oracle bitwise-ish."""
-    rng = np.random.RandomState(0)
-    B, K, A, Dc = 8, cfg.n_frames, cfg.attn_dim, cfg.ctx_dim
-    h_att = jnp.asarray(rng.randn(B, A), jnp.float32)
-    beta = jnp.asarray(rng.randn(B), jnp.float32)
-    pctx = jnp.asarray(rng.randn(B, K, A), jnp.float32)
-    ctx = jnp.asarray(rng.randn(B, K, Dc), jnp.float32)
-    mask = jnp.asarray((rng.rand(B, K) > 0.3).astype(np.float32))
-    mask = mask.at[:, 0].set(1.0)  # every row has >= 1 valid frame
-    u = jnp.asarray(rng.randn(A), jnp.float32)
-    c_att = jnp.float32(0.1)
-    b_sel = jnp.float32(-0.2)
-    ref_ctx, ref_a = smod._attention_core_jnp(
-        h_att, beta, pctx, ctx, mask, u, c_att, b_sel, True)
-    ker_ctx, ker_a = kmod.attention_core_pallas(
-        h_att, beta, pctx, ctx, mask, u, c_att, b_sel, True)
-    np.testing.assert_allclose(np.asarray(ker_a), np.asarray(ref_a),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ker_ctx), np.asarray(ref_ctx),
-                               rtol=1e-5, atol=1e-5)
+def _interp_tail_step():
+    step = kmod.make_tail_step(interpret=True)
+    step.make_logit_tail = functools.partial(
+        kmod.make_logit_tail, interpret=True, **_TILES)
+    return step
 
 
-def test_attention_core_parity_no_selector(cfg):
-    rng = np.random.RandomState(1)
-    B, K, A, Dc = 4, 6, 16, 32
-    args = (jnp.asarray(rng.randn(B, A), jnp.float32),
-            jnp.asarray(rng.randn(B), jnp.float32),
-            jnp.asarray(rng.randn(B, K, A), jnp.float32),
-            jnp.asarray(rng.randn(B, K, Dc), jnp.float32),
-            jnp.ones((B, K), jnp.float32),
-            jnp.asarray(rng.randn(A), jnp.float32),
-            jnp.float32(0.0), jnp.float32(0.0), False)
-    ref_ctx, ref_a = smod._attention_core_jnp(*args)
-    ker_ctx, ker_a = kmod.attention_core_pallas(*args)
-    np.testing.assert_allclose(np.asarray(ker_ctx), np.asarray(ref_ctx),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_step_pallas_matches_step(cfg):
-    params, batch = _setup(cfg)
-    from stvd.model.decoder import encode_context
-    ctx = encode_context(params, cfg, batch["frames"])
-    sc = precompute(params, cfg, ctx, batch["frame_mask"])
-    st = init_state(params, cfg, sc)
-    emb = params["Wemb"][batch["tokens"][:, 0]]
-    ref = smod.step(params, cfg, st, sc, emb)
-    ker = kmod.step_pallas(params, cfg, st, sc, emb)
-    np.testing.assert_allclose(np.asarray(ker.h), np.asarray(ref.h),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(ker.c), np.asarray(ref.c),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(ker.alpha), np.asarray(ref.alpha),
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_attention_core_beam_broadcast_parity(cfg):
-    """Beam case: state batch = 3x context batch; kernel must match the
-    oracle's broadcast semantics without tiling the context."""
-    rng = np.random.RandomState(5)
-    Bc, nb, K, A, Dc = 4, 3, cfg.n_frames, cfg.attn_dim, cfg.ctx_dim
-    h_att = jnp.asarray(rng.randn(Bc * nb, A), jnp.float32)
-    beta = jnp.asarray(rng.randn(Bc * nb), jnp.float32)
-    pctx = jnp.asarray(rng.randn(Bc, K, A), jnp.float32)
-    ctx = jnp.asarray(rng.randn(Bc, K, Dc), jnp.float32)
-    mask = jnp.asarray((rng.rand(Bc, K) > 0.3).astype(np.float32))
-    mask = mask.at[:, 0].set(1.0)
-    u = jnp.asarray(rng.randn(A), jnp.float32)
-    args = (h_att, beta, pctx, ctx, mask, u, jnp.float32(0.2),
-            jnp.float32(-0.1), True)
-    ref_ctx, ref_a = smod._attention_core_jnp(*args)
-    ker_ctx, ker_a = kmod.attention_core_pallas(*args)
-    assert ker_a.shape == (Bc * nb, K)
-    np.testing.assert_allclose(np.asarray(ker_a), np.asarray(ref_a),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ker_ctx), np.asarray(ref_ctx),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_beam_decode_with_kernel_matches(cfg):
-    from stvd.decode.beam import beam_decode
-    params, batch = _setup(cfg)
-    ref = beam_decode(params, cfg, batch, beam_size=3, maxlen=8)
-    ker = beam_decode(params, cfg, batch, beam_size=3, maxlen=8,
-                      step_fn=kmod.step_pallas)
+@pytest.mark.parametrize("spatial", [False, True])
+@pytest.mark.parametrize("beam", [2, 3, 5])
+def test_beam_decode_with_tail_matches_xla(beam, spatial):
+    """Token-for-token equal beam decode with and without the fused tail
+    (a vocabulary large enough for the kernel to engage)."""
+    extra = dict(use_spatial=True, n_regions=3, region_dim=8) \
+        if spatial else {}
+    cfg = small_cfg(n_words=1024, dim_word=64, **extra)
+    params, batch = _decode_setup(cfg, seed=beam)
+    ref = beam_decode(params, cfg, batch, beam_size=beam, maxlen=8)
+    ker = beam_decode(params, cfg, batch, beam_size=beam, maxlen=8,
+                      step_fn=_interp_tail_step())
     np.testing.assert_array_equal(np.asarray(ref.tokens),
                                   np.asarray(ker.tokens))
+    np.testing.assert_allclose(np.asarray(ref.scores),
+                               np.asarray(ker.scores), rtol=1e-4, atol=1e-4)
 
 
-def test_step_pallas_matches_step_spatial(spatial_cfg):
-    """Fully-fused kernel parity with the spatial-attention path active
-    (Pallas temporal + Pallas spatial cores compose)."""
-    params, batch = _setup(spatial_cfg)
-    from stvd.model.decoder import encode_context
-    ctx = encode_context(params, spatial_cfg, batch["frames"])
-    sc = precompute(params, spatial_cfg, ctx, batch["frame_mask"],
-                    batch["regions"])
-    st = init_state(params, spatial_cfg, sc)
-    emb = params["Wemb"][batch["tokens"][:, 0]]
-    ref = smod.step(params, spatial_cfg, st, sc, emb)
-    ker = kmod.step_pallas_spatial(params, spatial_cfg, st, sc, emb)
-    np.testing.assert_allclose(np.asarray(ker.h), np.asarray(ref.h),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(ker.alpha), np.asarray(ref.alpha),
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_spatial_kernel_beam_decode_parity(spatial_cfg):
-    """Beam decode with BOTH pallas cores (temporal + spatial) active
-    and beam broadcast == oracle beam decode."""
-    from stvd.decode.beam import beam_decode
-    params, batch = _setup(spatial_cfg)
-    ref = beam_decode(params, spatial_cfg, batch, beam_size=3, maxlen=8)
-    ker = beam_decode(params, spatial_cfg, batch, beam_size=3, maxlen=8,
-                      step_fn=kmod.step_pallas_spatial)
-    np.testing.assert_array_equal(np.asarray(ref.tokens),
-                                  np.asarray(ker.tokens))
-
-
-def test_spatial_tiles_exist_at_reference_scale():
-    """Config 2 at FULL reference scale with beam 5 must tile into VMEM
-    (round-1 judge item 10: no jnp fallback at (Bc, nb, K, R, s) =
-    (64, 5, 28, 49, 1024)); working set of the chosen tile must fit the
-    kernel's VMEM budget."""
-    for bc in (64, 256):
-        tiles = kmod._pick_spatial_tiles(bc, 28, 5, 49, 1024, 1024)
-        assert tiles is not None, f"spatial fallback at Bc={bc}"
-        bt, kt = tiles
-        work = (bt * 5 * kt * 49 * 1024 + bt * kt * 49 * 2048
-                + bt * 5 * kt * (1024 + 49)) * 4
-        assert work <= kmod._VMEM_BUDGET
-    # temporal core likewise
-    assert kmod._pick_batch_tile(64, 5, 28, 1024, 1024) is not None
-
-
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="Mosaic compile check needs real TPU")
-def test_spatial_kernel_reference_scale_parity_tpu():
-    """Full-scale config-2 spatial core (Bc=64, nb=5, K=28, R=49,
-    s=1024) compiles under Mosaic and matches the jnp oracle."""
-    rng = np.random.RandomState(0)
-    bc, nb, k, r, s, dr = 64, 5, 28, 49, 1024, 1024
-    h_satt = jnp.asarray(rng.randn(bc * nb, s), jnp.float32)
-    pregion = jnp.asarray(0.1 * rng.randn(bc, k, r, s), jnp.float32)
-    regions = jnp.asarray(rng.randn(bc, k, r, dr), jnp.float32)
-    u_s = jnp.asarray(rng.randn(s), jnp.float32)
-    c_s = jnp.float32(0.1)
-    ref = smod._spatial_core_jnp(h_satt, pregion, regions, u_s, c_s,
-                                 jnp.float32)
-    ker = kmod.spatial_core_pallas(h_satt, pregion, regions, u_s, c_s,
-                                   jnp.float32)
-    # spat tolerance is wide because the ORACLE is the less precise
-    # side: TPU 'default' matmul precision truncates the f32 einsum
-    # operands to bf16 on the MXU, while the kernel reduces in true f32
-    # on the VPU (measured max|diff| 0.018 on O(5) values).  alpha stays
-    # tight — both sides compute scores on the VPU.
-    np.testing.assert_allclose(np.asarray(ker[0]), np.asarray(ref[0]),
-                               rtol=5e-2, atol=5e-2)
-    np.testing.assert_allclose(np.asarray(ker[1]), np.asarray(ref[1]),
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_spatial_kernel_grads_match(spatial_cfg):
-    from stvd.train.loss import loss_fn
-    params, batch = _setup(spatial_cfg)
-
-    def l(p, step_fn):
-        return loss_fn(p, spatial_cfg, batch, train=False,
-                       step_fn=step_fn)[0]
-
-    g_ref = jax.grad(lambda p: l(p, None))(params)
-    g_ker = jax.grad(lambda p: l(p, kmod.step_pallas_spatial))(params)
-    for k in ("Us_att", "Ws_att", "W_spat_fuse", "Wsd_att", "U", "Wemb"):
-        np.testing.assert_allclose(np.asarray(g_ker[k]),
-                                   np.asarray(g_ref[k]),
-                                   rtol=1e-3, atol=1e-4, err_msg=k)
-
-
-def test_forward_train_with_kernel_matches(cfg):
-    """Full teacher-forced forward: oracle vs pallas step inside scan."""
-    params, batch = _setup(cfg)
-    ref = forward_train(params, cfg, batch, train=False)
-    ker = forward_train(params, cfg, batch, train=False,
-                        step_fn=kmod.step_pallas)
-    np.testing.assert_allclose(np.asarray(ker.logits),
-                               np.asarray(ref.logits), rtol=1e-4, atol=1e-4)
-
-
-def test_greedy_decode_with_kernel_matches(cfg):
-    params, batch = _setup(cfg)
+def test_greedy_decode_with_tail_step_is_xla_path():
+    """Greedy declines the kernel, so the tail step's greedy decode is
+    the XLA decode exactly."""
+    cfg = small_cfg(n_words=1024, dim_word=64)
+    params, batch = _decode_setup(cfg)
     ref = greedy_decode(params, cfg, batch, maxlen=8)
-    ker = greedy_decode(params, cfg, batch, maxlen=8,
-                        step_fn=kmod.step_pallas)
+    got = greedy_decode(params, cfg, batch, maxlen=8,
+                        step_fn=_interp_tail_step())
     np.testing.assert_array_equal(np.asarray(ref.tokens),
-                                  np.asarray(ker.tokens))
-
-
-def test_kernel_grad_matches_oracle(cfg):
-    """Gradients THROUGH the pallas kernel must match the oracle (the
-    kernel is used in the train scan body)."""
-    params, batch = _setup(cfg)
-    from stvd.train.loss import loss_fn
-
-    def l(p, step_fn):
-        return loss_fn(p, cfg, batch, train=False, step_fn=step_fn)[0]
-
-    g_ref = jax.grad(lambda p: l(p, None))(params)
-    g_ker = jax.grad(lambda p: l(p, kmod.step_pallas_spatial))(params)
-    for k in g_ref:
-        np.testing.assert_allclose(np.asarray(g_ker[k]),
-                                   np.asarray(g_ref[k]),
-                                   rtol=1e-3, atol=1e-4, err_msg=k)
+                                  np.asarray(got.tokens))
+    np.testing.assert_array_equal(np.asarray(ref.scores),
+                                  np.asarray(got.scores))
 
 
 # ---------------------------------------------------------------------------
-# Fused logit tail (matmul + logsumexp + top-k) — round-2 decode kernel
+# the plain attention cores against float64 NumPy
 # ---------------------------------------------------------------------------
 
-def test_logit_tail_matches_xla_topk():
-    """vals/idx must equal lax.top_k of the materialized logits exactly
-    (incl. lowest-index tie-breaking); lse matches logsumexp."""
-    rng = np.random.RandomState(0)
-    rows, dw, V, k = 24, 128, 1000, 5
-    x = jnp.asarray(rng.randn(rows, dw), jnp.float32)
-    w = jnp.asarray(rng.randn(dw, V) * 0.1, jnp.float32)
-    b = jnp.asarray(rng.randn(V), jnp.float32)
-    tail = kmod.make_logit_tail(w, b, k)
-    assert tail is not None
-    vals, idx, lse = jax.jit(tail)(x)
-    logits = x @ w + b
-    rv, ri = jax.lax.top_k(logits, k)
-    np.testing.assert_allclose(np.asarray(vals), np.asarray(rv),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(ri))
-    np.testing.assert_allclose(np.asarray(lse),
-                               np.asarray(jax.nn.logsumexp(logits, -1)),
-                               rtol=1e-5, atol=1e-5)
+def _np_softmax(s, mask):
+    s = np.where(mask > 0, s, -np.inf)
+    m = np.max(s, axis=-1, keepdims=True)
+    e = np.where(mask > 0, np.exp(s - m), 0.0)
+    return e / np.maximum(e.sum(-1, keepdims=True), 1e-20)
 
 
-def test_logit_tail_ties_and_padding():
-    """All-equal logits tie-break to the lowest indices, and the padded
-    vocab columns (V not a multiple of the tile) never surface."""
-    dw, V, k = 128, 900, 5      # 900 -> padded to a 128-multiple
-    x = jnp.zeros((8, dw), jnp.float32)
-    w = jnp.zeros((dw, V), jnp.float32)
-    b = jnp.zeros((V,), jnp.float32)
-    tail = kmod.make_logit_tail(w, b, k)
-    vals, idx, lse = jax.jit(tail)(x)
-    np.testing.assert_array_equal(np.asarray(idx[0]), np.arange(k))
-    assert float(jnp.abs(lse - np.log(V)).max()) < 1e-4
-    # rows that don't tile evenly (rows=9 -> padded to 16)
-    x2 = jnp.asarray(np.random.RandomState(1).randn(9, dw), jnp.float32)
-    v2, i2, l2 = jax.jit(tail)(x2)
-    assert v2.shape == (9, k) and i2.shape == (9, k) and l2.shape == (9,)
+def _np_attention(h_att, beta, pctx, ctx, mask, u, c_att, b_sel, selector):
+    bc, nb = pctx.shape[0], h_att.shape[0] // pctx.shape[0]
+    h = h_att.reshape(bc, nb, 1, -1)
+    e = np.tanh(pctx[:, None] + h)                       # (Bc,nb,K,A)
+    scores = (e * u).sum(-1) + c_att
+    alpha = _np_softmax(scores, mask[:, None, :])
+    ctx_t = np.einsum("bjk,bkd->bjd", alpha, ctx)
+    alpha = alpha.reshape(bc * nb, -1)
+    ctx_t = ctx_t.reshape(bc * nb, -1)
+    if selector:
+        ctx_t = ctx_t / (1.0 + np.exp(-(beta + b_sel)))[:, None]
+    return ctx_t, alpha
 
 
-def test_logit_tail_prime_vocab_grid():
-    """Vocab sizes whose 128-grid count is PRIME (e.g. MSR-VTT 20096 =
-    157 x 128) must get a padded WIDE tile, not tv=128: the round-2
-    divisor-only rule left a 157-iteration vocab grid measured at
-    8.53 ms/step — the entire preset-4 roofline gap (round 3).  Parity
-    pinned at the same shape class (4736 = 37 x 128, 37 prime)."""
-    assert kmod._pick_vocab_tile(20096) >= 2048
-    assert kmod._pick_vocab_tile(13056) == 4352   # tuned exact divisor kept
-    rng = np.random.RandomState(2)
-    rows, dw, V, k = 16, 128, 4736, 5
-    assert kmod._pick_vocab_tile(V) >= 2048
-    x = jnp.asarray(rng.randn(rows, dw), jnp.float32)
-    w = jnp.asarray(rng.randn(dw, V) * 0.1, jnp.float32)
-    b = jnp.asarray(rng.randn(V), jnp.float32)
-    tail = kmod.make_logit_tail(w, b, k)
-    vals, idx, lse = jax.jit(tail)(x)
-    logits = x @ w + b
-    rv, ri = jax.lax.top_k(logits, k)
-    np.testing.assert_allclose(np.asarray(vals), np.asarray(rv),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(ri))
-    np.testing.assert_allclose(np.asarray(lse),
-                               np.asarray(jax.nn.logsumexp(logits, -1)),
-                               rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("nb", [1, 5])
+@pytest.mark.parametrize("selector", [True, False])
+@pytest.mark.parametrize("mask_kind", ["full", "ragged", "single_frame"])
+def test_attention_core_matches_float64(mask_kind, selector, nb):
+    rng = np.random.RandomState(nb * 7 + selector)
+    bc, k, a, dc = 4, 6, 16, 24
+    h_att = rng.randn(bc * nb, a)
+    beta = rng.randn(bc * nb)
+    pctx = rng.randn(bc, k, a)
+    ctx = rng.randn(bc, k, dc)
+    u = rng.randn(a)
+    mask = np.ones((bc, k))
+    if mask_kind == "ragged":
+        mask = (rng.rand(bc, k) > 0.4).astype(np.float64)
+        mask[:, 0] = 1.0
+    elif mask_kind == "single_frame":
+        mask[:, 1:] = 0.0
+    ref_ctx, ref_a = _np_attention(h_att, beta, pctx, ctx, mask, u, 0.1,
+                                   -0.2, selector)
+    f32 = lambda z: jnp.asarray(z, jnp.float32)  # noqa: E731
+    got_ctx, got_a = smod._attention_core_jnp(
+        f32(h_att), f32(beta), f32(pctx), f32(ctx), f32(mask), f32(u),
+        jnp.float32(0.1), jnp.float32(-0.2), selector)
+    np.testing.assert_allclose(np.asarray(got_a), ref_a, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(np.asarray(got_ctx), ref_ctx, rtol=1e-4,
+                               atol=1e-5)
 
 
-def test_logit_tail_small_vocab_falls_back():
-    w = jnp.zeros((128, 30), jnp.float32)
-    assert kmod.make_logit_tail(w, jnp.zeros(30), 5) is None
-    w = jnp.zeros((100, 1000), jnp.float32)   # dw not 128-aligned
-    assert kmod.make_logit_tail(w, jnp.zeros(1000), 5) is None
-
-
-def test_beam_decode_tail_kernel_parity():
-    """End-to-end beam decode with a vocab large enough to engage the
-    fused tail must emit the same tokens as the jnp path."""
-    import dataclasses
-    from stvd.decode.beam import beam_decode
-    from stvd.decode.greedy import greedy_decode
-    from conftest import small_cfg
-    cfg = dataclasses.replace(small_cfg(), n_words=1024, dim_word=128)
-    params, batch = _setup(cfg)
-    ref = beam_decode(params, cfg, batch, beam_size=3, maxlen=8)
-    ker = beam_decode(params, cfg, batch, beam_size=3, maxlen=8,
-                      step_fn=kmod.step_pallas)
-    np.testing.assert_array_equal(np.asarray(ref.tokens),
-                                  np.asarray(ker.tokens))
-    gref = greedy_decode(params, cfg, batch, maxlen=8)
-    gker = greedy_decode(params, cfg, batch, maxlen=8,
-                         step_fn=kmod.step_pallas)
-    np.testing.assert_array_equal(np.asarray(gref.tokens),
-                                  np.asarray(gker.tokens))
-    np.testing.assert_allclose(np.asarray(gref.scores),
-                               np.asarray(gker.scores), rtol=1e-4,
-                               atol=1e-4)
-
-
-def test_logit_tail_k1_and_k8():
-    """k_sel=1 is the greedy serving path (fused tail top-1); k_sel=8
-    is the widest supported selection — both must match lax.top_k."""
-    rng = np.random.RandomState(3)
-    x = jnp.asarray(rng.randn(40, 128), jnp.float32)
-    w = jnp.asarray(rng.randn(128, 1408) * 0.1, jnp.float32)
-    b = jnp.asarray(rng.randn(1408), jnp.float32)
-    logits = x @ w + b
-    for k in (1, 8):
-        tail = kmod.make_logit_tail(w, b, k)
-        assert tail is not None
-        vals, idx, lse = jax.jit(tail)(x)
-        rv, ri = jax.lax.top_k(logits, k)
-        np.testing.assert_allclose(np.asarray(vals), np.asarray(rv),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(idx), np.asarray(ri))
-    assert kmod.make_logit_tail(w, b, 9) is None   # k cap documented
-
-
-def test_tail_tv_shrinks_for_large_row_counts():
-    """Regression pin for the b=512 beam-5 VMEM overflow: at the
-    reference tail shape (dw=512 bf16 weights, vocab 13056, tr=128,
-    k=5) the vocab tile must stay 4352 at rp=1920 (the measured-good
-    headline shape) and shrink at rp=2560 (the measured 16.54 MB
-    compile failure)."""
-    args = dict(vp=13056, tr=128, dw=512, w_bytes=2, x_bytes=2, k_sel=5)
-    assert kmod._shrink_tail_tv(4352, rp=1920, **args) == 4352
-    assert kmod._shrink_tail_tv(4352, rp=2560, **args) == 2176
-    # tiny shapes never shrink
-    assert kmod._shrink_tail_tv(1000, vp=1000, rp=64, tr=8, dw=128,
-                                w_bytes=4, x_bytes=4, k_sel=5) == 1000
-
-
-# ---- fused gates+LSTM kernel (model.gates_kernel) --------------------------
-
-def _gk_cfg(**kw):
-    """Lane-aligned dims (the gates kernel's tiling needs dim and
-    ctx_dim % 128; dim_word pads to 128 inside the kernel)."""
-    from stvd.config import ModelConfig
-    base = dict(n_words=48, dim_word=16, dim=128, ctx_dim=128, n_frames=6,
-                compute_dtype="float32", use_dropout=False,
-                gates_kernel="on")
-    base.update(kw)
-    return ModelConfig(**base)
-
-
-def _gk_setup(cfg, b=4, seed=0):
-    rng = np.random.RandomState(seed)
-    params = init_params(jax.random.PRNGKey(1), cfg)
-    ctx = jnp.asarray(rng.randn(b, cfg.n_frames, cfg.ctx_dim) * 0.5,
-                      jnp.float32)
-    mask = jnp.ones((b, cfg.n_frames), jnp.float32)
-    sc = precompute(params, cfg, ctx, mask)
-    state = init_state(params, cfg, sc)
-    emb = jnp.asarray(rng.randn(b, cfg.dim_word) * 0.5, jnp.float32)
-    return params, sc, state, emb
-
-
-@pytest.mark.parametrize("quant", ["none", "int8"])
-def test_gates_kernel_step_parity(quant):
-    """step with the fused gates+LSTM Pallas core == the jnp gates
-    branch (shared quantization grid in int8: the kernel consumes the
-    SAME per-column scales precompute built for the jnp path)."""
-    cfg = _gk_cfg(decode_quant=quant)
-    params, sc, state, emb = _gk_setup(cfg)
-    assert sc.gk_w is not None            # precompute built the operands
-    ref = smod.step(params, cfg, state, sc, emb)
-    got = smod.step_with_core(params, cfg, state, sc, emb,
-                              gates_core=kmod.gates_lstm_pallas)
-    np.testing.assert_allclose(np.asarray(got.h), np.asarray(ref.h),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(got.c), np.asarray(ref.c),
-                               rtol=1e-5, atol=1e-6)
-    # the attention half of the step is untouched by the gates core
-    np.testing.assert_array_equal(np.asarray(got.ctx_t),
-                                  np.asarray(ref.ctx_t))
-
-
-def test_gates_kernel_row_padding_parity():
-    """Row counts off the 128 tile (beam remnants, b=1 serving) pad
-    with neutral rows and slice back exactly."""
-    cfg = _gk_cfg(decode_quant="int8")
-    for b in (1, 3, 5):
-        params, sc, state, emb = _gk_setup(cfg, b=b, seed=b)
-        ref = smod.step(params, cfg, state, sc, emb)
-        got = smod.step_with_core(params, cfg, state, sc, emb,
-                                  gates_core=kmod.gates_lstm_pallas)
-        np.testing.assert_allclose(np.asarray(got.h), np.asarray(ref.h),
-                                   rtol=1e-5, atol=1e-6, err_msg=f"b={b}")
-
-
-def test_gates_kernel_declines_unaligned_dim(cfg):
-    """Default test dims (24/32) don't tile: layout is None, precompute
-    builds no operands, and the hooked step falls through to the exact
-    XLA path."""
-    gcfg = small_cfg(gates_kernel="on")
-    assert smod.gates_kernel_layout(gcfg) is None
-    params, batch = _setup(gcfg)
-    dev_ctx = batch["frames"]
-    mask = batch["frame_mask"]
-    from stvd.model.decoder import encode_context
-    ctx = encode_context(params, gcfg, dev_ctx, batch.get("motion"))
-    sc = precompute(params, gcfg, ctx, mask)
-    assert sc.gk_w is None
-    state = init_state(params, gcfg, sc)
-    emb = jnp.zeros((4, gcfg.dim_word), jnp.float32)
-    ref = smod.step(params, gcfg, state, sc, emb)
-    got = smod.step_with_core(params, gcfg, state, sc, emb,
-                              gates_core=kmod.gates_lstm_pallas)
-    np.testing.assert_array_equal(np.asarray(got.h), np.asarray(ref.h))
-
-
-def test_greedy_decode_with_gates_kernel_matches():
-    """E2E: greedy decode through step_pallas with the gates kernel on
-    produces the oracle's exact token sequences."""
-    cfg_on = _gk_cfg()
-    cfg_off = _gk_cfg(gates_kernel="off")
-    ds = synthetic_dataset(n_videos=4, k=cfg_on.n_frames, d=cfg_on.ctx_dim,
-                           maxlen=10, seed=2)
-    dev = ds.bank.to_device()
-    batch = gather_batch(dev, ds.captions, np.arange(4, dtype=np.int32))
-    params = init_params(jax.random.PRNGKey(7), cfg_off)
-    ref = greedy_decode(params, cfg_off, batch, maxlen=8)
-    got = greedy_decode(params, cfg_on, batch, maxlen=8,
-                        step_fn=kmod.step_pallas)
-    np.testing.assert_array_equal(np.asarray(ref.tokens),
-                                  np.asarray(got.tokens))
-
-
-def test_beam_decode_with_gates_kernel_matches():
-    """Beam-broadcast rows (Bs = Bc * k) ride the gates kernel too."""
-    from stvd.decode.beam import beam_decode
-    cfg_on = _gk_cfg(decode_quant="int8")
-    cfg_off = _gk_cfg(gates_kernel="off", decode_quant="int8")
-    ds = synthetic_dataset(n_videos=4, k=cfg_on.n_frames, d=cfg_on.ctx_dim,
-                           maxlen=10, seed=3)
-    dev = ds.bank.to_device()
-    batch = gather_batch(dev, ds.captions, np.arange(4, dtype=np.int32))
-    params = init_params(jax.random.PRNGKey(9), cfg_off)
-    ref = beam_decode(params, cfg_off, batch, beam_size=3, maxlen=8)
-    got = beam_decode(params, cfg_on, batch, beam_size=3, maxlen=8,
-                      step_fn=kmod.step_pallas)
-    np.testing.assert_array_equal(np.asarray(ref.tokens),
-                                  np.asarray(got.tokens))
+@pytest.mark.parametrize("nb", [1, 3])
+def test_spatial_core_matches_float64(nb):
+    rng = np.random.RandomState(nb)
+    bc, k, r, s, dr = 2, 3, 4, 8, 5
+    h = rng.randn(bc * nb, s)
+    pregion = rng.randn(bc, k, r, s)
+    regions = rng.randn(bc, k, r, dr)
+    u = rng.randn(s)
+    e = np.tanh(pregion[:, None] + h.reshape(bc, nb, 1, 1, s))
+    sc = (e * u).sum(-1) + 0.3
+    alpha = _np_softmax(sc, np.ones_like(sc))
+    spat = np.einsum("bjkr,bkrd->bjkd", alpha, regions)
+    f32 = lambda z: jnp.asarray(z, jnp.float32)  # noqa: E731
+    got_spat, got_alpha = smod._spatial_core_jnp(
+        f32(h), f32(pregion), f32(regions), f32(u), jnp.float32(0.3),
+        jnp.float32)
+    np.testing.assert_allclose(np.asarray(got_alpha), alpha, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(np.asarray(got_spat), spat, rtol=1e-4,
+                               atol=1e-5)

@@ -401,3 +401,21 @@ def test_meteor15_uses_snowball_stemmer():
     s_port = meteor_sentence([pair[0]], [[pair[1]]], profile=p15_porter)
     assert s_snow > 0            # stem match under snowball
     assert s_port == 0           # no match under porter
+
+
+@pytest.mark.parametrize("kind,col", [("porter", 0), ("snowball", 1)])
+def test_repo_stemmers_pinned_to_fixture(kind, col):
+    """The repo's own Porter and Snowball stemmers reproduce, stem for
+    stem, what NLTK's PorterStemmer / SnowballStemmer('english') gave
+    for a fixed 2,159-word list (tests/fixtures/stems_en.json) — METEOR
+    needs no NLTK installation."""
+    import json
+    import os
+    from stvd.metrics import stem
+    path = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "stems_en.json")
+    with open(path) as f:
+        table = json.load(f)
+    fn = getattr(stem, kind)
+    bad = {w: (fn(w), s[col]) for w, s in table.items() if fn(w) != s[col]}
+    assert not bad, dict(list(bad.items())[:10])

@@ -178,12 +178,20 @@ def test_scheduled_sampling_path(cfg, dataset, params):
 
 def test_all_features_combined():
     """spatial + motion + lstm-encoder simultaneously, oracle and
-    kernel steps, forward + beam decode (feature combos must compose)."""
-    from stvd.decode.beam import beam_decode
-    from stvd.model.kernel import step_pallas
+    fused-logit-tail steps (the tail in interpret mode), forward + beam
+    decode (feature combos must compose)."""
+    import functools
 
+    from stvd.decode.beam import beam_decode
+    from stvd.model import kernel as kmod
+
+    step_tail = kmod.make_tail_step(interpret=True)
+    step_tail.make_logit_tail = functools.partial(
+        kmod.make_logit_tail, interpret=True, tr=16, tv=64, tk=64, splits=2)
+    # a vocabulary and word width the tail accepts, so the kernel engages
     cfg = small_cfg(use_spatial=True, n_regions=4, region_dim=16,
-                    use_motion=True, motion_dim=24, encoder="lstm")
+                    use_motion=True, motion_dim=24, encoder="lstm",
+                    n_words=1024, dim_word=64)
     ds = synthetic_dataset(n_videos=4, k=cfg.n_frames, d=cfg.ctx_dim,
                            n_regions=4, region_dim=16, motion_dim=24,
                            maxlen=10, seed=6)
@@ -191,13 +199,13 @@ def test_all_features_combined():
     p = init_params(jax.random.PRNGKey(0), cfg)
     out = forward_train(p, cfg, b, train=False)
     assert np.isfinite(np.asarray(out.logits)).all()
-    out_k = forward_train(p, cfg, b, train=False, step_fn=step_pallas)
+    out_k = forward_train(p, cfg, b, train=False, step_fn=step_tail)
     np.testing.assert_allclose(np.asarray(out_k.logits),
                                np.asarray(out.logits), rtol=1e-4,
                                atol=1e-4)
     dec = beam_decode(p, cfg, b, beam_size=3, maxlen=8)
     dec_k = beam_decode(p, cfg, b, beam_size=3, maxlen=8,
-                        step_fn=step_pallas)
+                        step_fn=step_tail)
     np.testing.assert_array_equal(np.asarray(dec.tokens),
                                   np.asarray(dec_k.tokens))
 

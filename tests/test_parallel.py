@@ -62,7 +62,7 @@ def test_dp_train_step_matches_single_device():
 
 def test_shard_map_psum_grad_parity():
     """Explicit shard_map + lax.pmean gradient averaging equals the
-    global gradient (pins the ICI collective semantics of SURVEY.md §2
+    global gradient (pins the collective semantics of SURVEY.md §2
     row 10)."""
     from jax import shard_map
 
@@ -268,54 +268,12 @@ def test_tp_decode_spatial_config():
                                   np.asarray(ref.tokens))
 
 
-@pytest.mark.parametrize("dw", [16, 128])
-def test_tp_tail_island_exact_merge(dw):
-    """The shard_map logit-tail island (per-shard fused kernel + one
-    exact cross-shard merge) must equal the single-device reference:
-    top-k of act @ w + b with lax.top_k tie-breaking (lowest global
-    index among equals — values are quantized to force ties), and the
-    global logsumexp.  dw=128 engages the Pallas kernel per shard
-    (interpret mode on CPU); dw=16 exercises the local XLA fallback
-    with the same merge."""
-    from stvd.decode.parallel import _tp_tail_factory
-
-    rows, v, k = 16, 256, 5
-    rng = np.random.RandomState(0)
-    act = jnp.asarray(
-        np.round(rng.randn(rows, dw) * 2).astype(np.float32) / 2)
-    w = jnp.asarray(
-        np.round(rng.randn(dw, v)).astype(np.float32) / 4)
-    b = jnp.asarray(np.round(rng.randn(v)).astype(np.float32) / 4)
-
-    logits = np.asarray(act @ w + b[None, :], np.float32)
-    ref_v, ref_i = jax.lax.top_k(jnp.asarray(logits), k)
-    m = logits.max(axis=1)
-    ref_lse = m + np.log(np.exp(logits - m[:, None]).sum(axis=1))
-    # the quantized grid produced actual duplicate values per row
-    assert any(len(np.unique(logits[r])) < v for r in range(rows))
-
-    mesh = parallel.make_mesh_2d(model_parallel=4)
-    tail = _tp_tail_factory(mesh)(w, b, k)
-    got_v, got_i, got_lse = jax.jit(tail)(act)
-    np.testing.assert_array_equal(np.asarray(got_i), np.asarray(ref_i))
-    np.testing.assert_allclose(np.asarray(got_v), np.asarray(ref_v),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(got_lse), ref_lse,
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_tp_tail_factory_declines_indivisible_vocab():
-    from stvd.decode.parallel import _tp_tail_factory
-    mesh = parallel.make_mesh_2d(model_parallel=4)
-    w = jnp.zeros((16, 254), jnp.float32)   # 254 % 4 != 0
-    assert _tp_tail_factory(mesh)(w, jnp.zeros((254,)), 5) is None
-
-
-def test_tp_decode_pallas_tail_island_matches_single_device():
-    """TP beam decode with tail='tp' — the fused Pallas logit tail
-    running PER SHARD on the vocab-column slices under shard_map — must
-    emit the single-device beam_decode tokens (dims chosen so the
-    kernel actually engages: dw=128, V/mp=256 >= 8k)."""
+@pytest.mark.parametrize("model_parallel", [4, 8])
+def test_tp_decode_large_vocab(model_parallel):
+    """TP beam decode at a vocabulary and logit width where the
+    single-device decode would use the fused tail: under TP the XLA
+    tail runs on the column-sharded vocab matmul and the tokens still
+    match single-device decode."""
     from stvd.decode.beam import beam_decode
     from stvd.decode.parallel import make_tp_beam_decode, \
         shard_decode_params
@@ -330,17 +288,40 @@ def test_tp_decode_pallas_tail_island_matches_single_device():
 
     ref = beam_decode(params, mcfg, batch, beam_size=3, maxlen=6,
                       length_norm=0.6)
-    mesh = parallel.make_mesh_2d(model_parallel=4)
+    mesh = parallel.make_mesh_2d(model_parallel=model_parallel)
     p_sh = shard_decode_params(jax.device_get(params), mesh)
     assert p_sh["ff_logit_W"].sharding.spec == P(None, "model")
     run = make_tp_beam_decode(mcfg, mesh, beam_size=3, maxlen=6,
-                              length_norm=0.6, tail="tp")
+                              length_norm=0.6)
     got = run(p_sh, parallel.shard_batch(batch, mesh))
     np.testing.assert_array_equal(np.asarray(got.tokens),
                                   np.asarray(ref.tokens))
     np.testing.assert_allclose(np.asarray(got.norm_scores),
                                np.asarray(ref.norm_scores),
                                rtol=1e-5, atol=1e-6)
+
+
+def test_tp_decode_int8():
+    """decode_quant='int8' under TP: the s8 x s8 -> s32 gates matmul
+    partitions like the bf16 one; tokens match single-device int8."""
+    from stvd.decode.beam import beam_decode
+    from stvd.decode.parallel import make_tp_beam_decode, \
+        shard_decode_params
+
+    mcfg = dataclasses.replace(MCFG, decode_quant="int8")
+    ds = synthetic_dataset(n_videos=8, captions_per_video=1,
+                           k=mcfg.n_frames, d=mcfg.ctx_dim, maxlen=8,
+                           seed=13)
+    dev = ds.bank.to_device()
+    batch = {k: dev[k] for k in ("frames", "frame_mask")}
+    params = init_params(jax.random.PRNGKey(6), mcfg)
+    ref = beam_decode(params, mcfg, batch, beam_size=3, maxlen=6)
+    mesh = parallel.make_mesh_2d(model_parallel=2)
+    run = make_tp_beam_decode(mcfg, mesh, beam_size=3, maxlen=6)
+    got = run(shard_decode_params(jax.device_get(params), mesh),
+              parallel.shard_batch(batch, mesh))
+    np.testing.assert_array_equal(np.asarray(got.tokens),
+                                  np.asarray(ref.tokens))
 
 
 def test_dryrun_multichip():

@@ -278,10 +278,17 @@ def test_fit_end_to_end(tmp_path):
 
 
 def test_fit_with_pallas_kernel(tmp_path):
-    """fit() end-to-end with the fused kernel as the scan step."""
-    from stvd.model.kernel import step_pallas
+    """fit() end-to-end with the fused logit-tail step (interpret mode):
+    validation beam decodes run the kernel, training the XLA scan."""
+    import functools
+    from stvd.model import kernel as kmod
+    step_fn = kmod.make_tail_step(interpret=True)
+    step_fn.make_logit_tail = functools.partial(
+        kmod.make_logit_tail, interpret=True, tr=16, tv=64, tk=64,
+        splits=2)
+    mcfg = dataclasses.replace(MCFG, n_words=1024, dim_word=64)
     cfg = Config(
-        model=MCFG,
+        model=mcfg,
         train=dataclasses.replace(
             TCFG, max_epochs=3, valid_freq=2, save_freq=0, disp_freq=100,
             sample_freq=0, valid_batch_size=8, maxlen=10,
@@ -292,7 +299,7 @@ def test_fit_with_pallas_kernel(tmp_path):
                                  d=32, maxlen=10, seed=0)
     valid_ds = synthetic_dataset(n_videos=4, captions_per_video=1, k=6,
                                  d=32, maxlen=10, seed=1)
-    res = fit(cfg, train_ds, valid_ds, step_fn=step_pallas, max_updates=3)
+    res = fit(cfg, train_ds, valid_ds, step_fn=step_fn, max_updates=3)
     assert res.history
 
 
@@ -526,3 +533,70 @@ def test_grad_accum_config_guards():
         from stvd.train.parallel import make_mesh
         make_train_step(MCFG, dataclasses.replace(TCFG, grad_accum=2),
                         mesh=make_mesh())
+
+
+@pytest.mark.parametrize("slot_dtype", ["float32", "bfloat16"])
+def test_checkpoint_keeps_dtypes(tmp_path, slot_dtype):
+    """The npz checkpoint stores every leaf in its own dtype, bfloat16
+    optimizer slots included (numpy cannot name bf16: stored as bits)."""
+    tcfg = dataclasses.replace(TCFG, optimizer="adadelta", lr=1.0,
+                               opt_slot_dtype=slot_dtype)
+    state = init_train_state(jax.random.PRNGKey(1), MCFG, tcfg)
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(path, state)
+    restored = restore_checkpoint(
+        path, init_train_state(jax.random.PRNGKey(2), MCFG, tcfg))
+    for a, b in zip(jax.tree.leaves(state), jax.tree.leaves(restored)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      np.asarray(b, np.float32))
+    assert any(leaf.dtype == jnp.bfloat16
+               for leaf in jax.tree.leaves(restored)) == \
+        (slot_dtype == "bfloat16")
+
+
+def test_checkpoint_keys_by_tree_path(tmp_path):
+    """Entries are keyed by the leaf's tree path, so the file reads
+    without the program (and a renamed param is a clear error)."""
+    import json
+    state = init_train_state(jax.random.PRNGKey(1), MCFG, TCFG)
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(path, state)
+    with np.load(os.path.join(path, "state.npz")) as z:
+        keys = set(z.files)
+        dtypes = json.loads(str(z["__dtypes__"]))
+        np.testing.assert_array_equal(z["['params']['U']"],
+                                      np.asarray(state["params"]["U"]))
+    assert "['step']" in keys and "['rng']" in keys
+    assert set(dtypes) == keys - {"__dtypes__"}
+    template = init_train_state(jax.random.PRNGKey(1), MCFG, TCFG)
+    template["params"]["U_renamed"] = template["params"].pop("U")
+    with pytest.raises(KeyError, match="U_renamed"):
+        restore_checkpoint(path, template)
+
+
+def test_checkpoint_shape_mismatch_raises(tmp_path):
+    state = init_train_state(jax.random.PRNGKey(1), MCFG, TCFG)
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(path, state)
+    other = dataclasses.replace(MCFG, dim=40)
+    with pytest.raises(ValueError, match="shape"):
+        restore_checkpoint(path, init_train_state(jax.random.PRNGKey(1),
+                                                  other, TCFG))
+
+
+def test_checkpoint_write_is_atomic(tmp_path, monkeypatch):
+    """A save that dies mid-write leaves the previous checkpoint whole
+    (the file is written under a temporary name, then renamed)."""
+    state = init_train_state(jax.random.PRNGKey(1), MCFG, TCFG)
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(path, state)
+    before = open(os.path.join(path, "state.npz"), "rb").read()
+
+    def boom(*a, **k):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(np, "savez", boom)
+    with pytest.raises(OSError):
+        save_checkpoint(path, state)
+    assert open(os.path.join(path, "state.npz"), "rb").read() == before
